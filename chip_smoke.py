@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py        # from the root of a checkout, one card
+
+Phases, each of which raises (exit code 1) on failure:
+  1. versions, the card's name and power limit; TF32 off for the f32 checks;
+  2. build the CUDA kernel from csrc/ with nvcc;
+  3. the fused sinc-frontend kernel against its plain PyTorch version on the
+     card, at the main path's shape (128, 64600) in float32 and bfloat16,
+     and on a freq-masked bank at B = 3, L = 16001; kernel, plain and
+     cuDNN-chain times beside the kernel's bound;
+  4. the main path: Scorer.from_config("configs/AASIST.conf") with the
+     pretrained weights serves 5 requests of 1-6 s, then 131 (one full and
+     one ragged batch of 128).  Launch counts are reset just before and read
+     just after.  Its scores are checked against an f32 scorer without the
+     kernel; f32 with and without the kernel, f32 against the reference
+     golden, and bf16 against f32 are checked on the golden's input;
+  5. Scorer throughput at batch 128 in bf16, kernel on and off, and a
+     torch.profiler breakdown of one such batch by CUDA kernel (printed, not
+     gated; the whole table goes to chiprun_out/profile_bf16_b128.txt);
+  6. one JSON line describing every ported kernel, the card's line, and
+     last the device JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data-sheet peaks (dense), for the kernels' bounds
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+# Tolerances.  f32: the JAX kernel's own gate (tests/test_fused_frontend.py).
+# bf16 frontend: the plain chain rounds to bf16 after the conv, the BN and
+# the SELU, the kernel once at the end.  Each rounding is at most 2^-8
+# relative (one bf16 ulp is 0.125 at the outputs' top of ~20), so the two
+# differ by an ulp or two: 2e-2 relative, plus 2e-2 absolute near zero.
+# bf16 logits: the whole trunk in bf16 (8-bit mantissa, 7 convs) drifts by
+# ~1e-2 on logits of magnitude ~2 (CPU measurement on the golden input);
+# 0.1 leaves room for cuDNN's other summation orders.
+TOL_F32 = dict(atol=1e-4, rtol=0.0)
+TOL_BF16_KERNEL = dict(atol=2e-2, rtol=2e-2)
+TOL_MODEL_ON_OFF = dict(atol=2e-4, rtol=1e-4)
+TOL_GOLDEN = dict(atol=2e-2, rtol=2e-2)
+TOL_BF16_LOGITS = dict(atol=0.1, rtol=0.0)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def frontend_bound(b: int, length: int, c: int, dtype: str):
+    """(least ms, what bounds it) for one fused-frontend call: the conv's
+    FLOPs over the peak for the type, or the bytes read and written once
+    over the memory rate, whichever is larger."""
+    f_out, t_out = c // 3, (length - 128) // 3
+    flops = 2.0 * b * (3 * f_out) * (3 * t_out) * 129
+    esize = 4 if dtype == "float32" else 2
+    nbytes = esize * (b * length + c * 129 + b * f_out * t_out) + 16
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_forward(model, x, card: str) -> None:
+    """Device time of one forward by kernel name, and the device's idle
+    share of the window, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows only: the CPU ops' rows repeat their kernels' time
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with open(out / "profile_bf16_b128.txt", "w") as f:
+        f.write(f"{card}\nwindow {wall_ms:.3f} ms, device busy {busy:.3f} "
+                f"ms\n")
+        for ms, n, key in rows:
+            f.write(f"{ms:10.3f} ms  {n:5d}x  {key}\n")
+    print(f"[profile] bf16 forward batch 128, kernel on: window "
+          f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}  [{card}]")
+    for ms, n, key in rows[:12]:
+        print(f"[profile] {ms:9.3f} ms {n:4d}x  {key[:100]}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not (ROOT / "aasist_tpu_torch").is_dir():
+        fail(f"no aasist_tpu_torch package beside {__file__}: run it from a "
+             "checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    import torch.nn.functional as F
+
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.data.dataset import pad_to_fixed
+    from aasist_tpu_torch.ops import _build
+    from aasist_tpu_torch.ops.fused_frontend import (
+        fused_frontend, fused_frontend_reference)
+    from aasist_tpu_torch.registry import build_model
+    from aasist_tpu_torch.serving import Scorer
+    from aasist_tpu_torch.weights import load_npz
+
+    # ---------------------------------------------------------------- 1
+    card = card_line()
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}"
+          f"  count {torch.cuda.device_count()}")
+    print(f"card (name, power limit): {card}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 off for cuDNN convolutions and matmuls (f32 checks are full "
+          "f32)")
+
+    # ---------------------------------------------------------------- 2
+    lib = _build.load("fused_frontend")
+    print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
+    for line in lib.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build]   {line.strip()}")
+
+    # ---------------------------------------------------------------- 3
+    cfg = load_config(ROOT / "configs" / "AASIST.conf")
+    weights = ROOT / cfg.model_path
+    model32 = load_npz(build_model(cfg.model_config), weights)
+    bn = model32.first_bn
+
+    def bn_dicts(dtype):
+        conv = lambda t: t.detach().to("cuda", dtype)
+        return ({"weight": conv(bn.weight), "bias": conv(bn.bias)},
+                {"mean": conv(bn.running_mean), "var": conv(bn.running_var)})
+
+    def library_chain(x, bank, bn_p, bn_s):
+        # the same function from stock PyTorch / cuDNN calls
+        h = F.conv1d(x[:, None], bank[:, None]).abs()
+        h = F.max_pool2d(h[:, None], 3)
+        h = F.batch_norm(h, bn_s["mean"], bn_s["var"], bn_p["weight"],
+                         bn_p["bias"], training=False, eps=1e-5)
+        return F.selu(h)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    cases = [("float32", 128, 64600, False), ("bfloat16", 128, 64600, False),
+             ("float32", 3, 16001, True), ("bfloat16", 3, 16001, True)]
+    for dname, b, length, masked in cases:
+        dtype = getattr(torch, dname)
+        x = (torch.randn((b, length), generator=gen, device="cuda")
+             * 0.1).to(dtype)
+        bank = model32.filterbank.detach().to("cuda", dtype).clone()
+        if masked:
+            bank[10:20] = 0
+        bn_p, bn_s = bn_dicts(dtype)
+        got = fused_frontend(x, bank, bn_p, bn_s)
+        torch.cuda.synchronize()
+        ref = fused_frontend_reference(x, bank, bn_p, bn_s)
+        shape = (b, 1, 23, (length - 128) // 3)
+        check(tuple(got.shape) == shape and got.dtype == dtype,
+              f"kernel output {tuple(got.shape)} {got.dtype}, want {shape}")
+        check(bool(torch.isfinite(got).all()), "kernel output not finite")
+        tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(got.float(), ref.float(), **tol)
+        tag = f"{dname} B={b} L={length}{' masked' if masked else ''}"
+        print(f"[kernel] fused_frontend {tag}: max|kernel-plain| = {err:.3e}"
+              f" (atol {tol['atol']}, rtol {tol['rtol']})")
+        check(ok, f"fused_frontend disagrees with its plain version, {tag}")
+        if b == 128:
+            iters = 20
+            ms = cuda_ms(lambda: fused_frontend(x, bank, bn_p, bn_s), iters)
+            plain = cuda_ms(
+                lambda: fused_frontend_reference(x, bank, bn_p, bn_s), 10)
+            libms = cuda_ms(lambda: library_chain(x, bank, bn_p, bn_s), 10)
+            bound, by = frontend_bound(b, length, 70, dname)
+            results[dname] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  library_ms=libms, bound_ms=bound,
+                                  bound_by=by)
+            print(f"[kernel] fused_frontend {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by})  [{card}]")
+        del x, got, ref
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 4
+    scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
+                                weights_path=weights)
+    check(scorer.device.type == "cuda" and scorer.model.use_fused_frontend,
+          "the default Scorer must run on CUDA with the fused frontend")
+    check(scorer.batch_size == 128, f"batch size {scorer.batch_size}")
+    scorer.warmup()
+    rng = np.random.default_rng(0)
+    requests = [[(rng.standard_normal(n) * 0.1).astype(np.float32)
+                 for n in rng.integers(16000, 96001, size)]
+                for size in (5, 131)]
+    n_batches = sum(-(-len(r) // scorer.batch_size) for r in requests)
+
+    torch.cuda.synchronize()
+    fused_frontend.launches = 0
+    t0 = time.perf_counter()
+    scores = [scorer.score_waveforms(r) for r in requests]
+    wall = time.perf_counter() - t0
+    launches = {"fused_frontend": fused_frontend.launches}
+    print(f"[main] served {[len(s) for s in scores]} requests in "
+          f"{n_batches} batches, {wall:.3f} s; launches {launches}")
+    for r, s in zip(requests, scores):
+        check(len(s) == len(r), f"{len(s)} scores for {len(r)} requests")
+        check(bool(np.isfinite(s).all()), "non-finite scores")
+    check(launches["fused_frontend"] == n_batches,
+          f"fused_frontend launched {launches['fused_frontend']} times for "
+          f"{n_batches} batches")
+
+    s32_off = Scorer(model32, bf16=False, use_fused_frontend=False)
+    s32_on = Scorer(model32, bf16=False, use_fused_frontend=True)
+    ref_scores = [s32_off.score_waveforms(r) for r in requests]
+    err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
+              for a, b in zip(scores, ref_scores))
+    print(f"[main] bf16 kernel scores vs f32 unfused scores: max|d| = "
+          f"{err:.3e} (atol {TOL_BF16_LOGITS['atol']})")
+    check(err <= TOL_BF16_LOGITS["atol"], "main-path scores off the f32 ones")
+
+    golden = np.load(ROOT / "tests" / "goldens" / "aasist_golden.npz")
+    xg = torch.from_numpy(golden["x"]).cuda()
+    with torch.inference_mode():
+        l_on = s32_on.model(xg)[1].float().cpu().numpy()
+        l_off = s32_off.model(xg)[1].float().cpu().numpy()
+        l_bf16 = scorer.model(xg)[1].float().cpu().numpy()
+    d_onoff = np.abs(l_on - l_off).max()
+    print(f"[main] f32 logits kernel on vs off: max|d| = {d_onoff:.3e}")
+    check(np.allclose(l_on, l_off, **TOL_MODEL_ON_OFF),
+          "f32 logits with and without the kernel disagree")
+    d_gold = np.abs(l_on - golden["logits"]).max()
+    print(f"[main] f32 kernel logits vs reference golden: max|d| = "
+          f"{d_gold:.3e}")
+    check(np.allclose(l_on, golden["logits"], **TOL_GOLDEN),
+          "f32 logits off the reference golden")
+    check((np.argsort(l_on[:, 1])
+           == np.argsort(golden["logits"][:, 1])).all(),
+          "bonafide-score order differs from the golden's")
+    d_bf16 = np.abs(l_bf16 - l_on).max()
+    print(f"[main] bf16 kernel logits vs f32: max|d| = {d_bf16:.3e}")
+    check(np.allclose(l_bf16, l_on, **TOL_BF16_LOGITS),
+          "bf16 logits off the f32 ones")
+    del s32_on, s32_off
+
+    # ---------------------------------------------------------------- 5
+    rows = np.stack([pad_to_fixed(w) for w in requests[1][:128]])
+    xb = torch.from_numpy(rows).cuda()
+    thr = {True: [], False: []}
+    fwd = {True: [], False: []}
+    for on in (True, False, False, True):
+        scorer.model.use_fused_frontend = on
+        scorer.score_batch(rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            scorer.score_batch(rows)
+        thr[on].append(5 * 128 / (time.perf_counter() - t0))
+        with torch.inference_mode():
+            fwd[on].append(cuda_ms(lambda: scorer.model(xb), 5, warmup=1))
+    scorer.model.use_fused_frontend = True
+    profile_forward(scorer.model, xb, card)
+    for on in (True, False):
+        print(f"[throughput] bf16 Scorer batch 128, kernel "
+              f"{'on ' if on else 'off'}: {np.mean(thr[on]):.1f} utt/s "
+              f"(runs {[round(v, 1) for v in thr[on]]}), forward "
+              f"{np.mean(fwd[on]):.3f} ms/batch on the device  [{card}]")
+
+    # ---------------------------------------------------------------- 6
+    r16, r32 = results["bfloat16"], results["float32"]
+    kernels = [{
+        "name": "fused_frontend", "route": "cuda",
+        "source": "aasist_tpu_torch/csrc/fused_frontend.cu",
+        "replaces": "aasist_tpu/ops/fused_frontend.py:79",
+        "launches": launches["fused_frontend"],
+        "max_abs_err": r16["max_abs_err"], "ms": r16["ms"],
+        "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+        "bound_by": r16["bound_by"], "library_ms": r16["library_ms"],
+        "dtype": "bfloat16", "shape": [128, 64600],
+        "float32": r32,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
