@@ -2,12 +2,18 @@
 // taps, f32 accumulation) -> |.| -> max pool (3,3) over (filter, time) with
 // floor semantics -> eval BatchNorm of one channel folded to a scalar
 // scale/shift -> SELU.  (B, L) waveform in, (B, 1, C/3, (L-128)/3) out, in
-// the input's type (float or bf16).
+// the input's type (float or bf16).  The padded entry point writes the same
+// values into the interior of a zero-bordered (B, C/3 + 2, (L-128)/3 + 2)
+// frame instead: the input layout of csrc/fused_block0.cu, whose conv1 pads
+// frequency and time by one.
 //
 // Replaces the TPU kernel aasist_tpu/ops/fused_frontend.py:_kernel
-// (launched by _run).  That kernel phase-splits the waveform mod 3 on the
-// host so Mosaic can pool over time without stride-3 lane access, pads the
-// output to 32 rows and transposes it back.  None of that is needed here:
+// (launched by _run) and, in its padded form, tools/fused_stack.py:_fe_kernel
+// (launched by _fe_run), which writes mod-3 phase planes with zeroed border
+// rows and a masked tail for the TPU block-0 kernel.  Both split the
+// waveform into phases on the host so Mosaic can pool over time without
+// stride-3 lane access; the first pads the output to 32 rows and transposes
+// it back.  None of that is needed here:
 // each thread indexes the waveform tile in shared memory directly and
 // stores its pooled outputs straight into (B, 1, F_out, T_out).
 //
@@ -67,7 +73,9 @@ __device__ __forceinline__ float selu(float z) {
 
 // grid (ceil(T_out / TILE), B); block THREADS.  Warp (wt, wr) covers pooled
 // columns [tile + 32*P*wt, +32*P) and pooled rows wr, wr + WARPS_R, ...
-template <typename T>
+// PADDED: out is (B, F_out + 2, T_out + 2); row 0, row F_out + 1, column 0
+// and column T_out + 1 are written as zeros by the blocks that own them.
+template <typename T, bool PADDED>
 __global__ void __launch_bounds__(THREADS)
 fused_frontend_kernel(const T* __restrict__ x, const T* __restrict__ bank,
                       const float* __restrict__ sc, T* __restrict__ out,
@@ -118,7 +126,9 @@ fused_frontend_kernel(const T* __restrict__ x, const T* __restrict__ bank,
       for (int j = 0; j < CW - 1; ++j) win[j] = win[j + 1];
     }
 
-    T* orow = out + ((long long)b * F_out + r) * T_out;
+    T* orow = PADDED
+        ? out + ((long long)b * (F_out + 2) + r + 1) * (T_out + 2) + 1
+        : out + ((long long)b * F_out + r) * T_out;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int t = tile + col0 + p;
@@ -133,14 +143,32 @@ fused_frontend_kernel(const T* __restrict__ x, const T* __restrict__ bank,
       }
     }
   }
+
+  if (PADDED) {
+    const long long W = T_out + 2;
+    T* ob = out + (long long)b * (F_out + 2) * W;
+    const T zero = from_f32<T>(0.f);
+    for (int i = threadIdx.x; i < TILE; i += THREADS) {
+      const int t = tile + i;
+      if (t < T_out) {
+        ob[t + 1] = zero;
+        ob[(F_out + 1) * W + t + 1] = zero;
+      }
+    }
+    if (blockIdx.x == 0)
+      for (int r = threadIdx.x; r < F_out + 2; r += THREADS) ob[r * W] = zero;
+    if (blockIdx.x == gridDim.x - 1)
+      for (int r = threadIdx.x; r < F_out + 2; r += THREADS)
+        ob[r * W + T_out + 1] = zero;
+  }
 }
 
-template <typename T>
+template <typename T, bool PADDED>
 cudaError_t launch(const void* x, const void* bank, const float* sc,
                    void* out, int B, int L, int F_out, int T_out,
                    cudaStream_t stream) {
   const size_t smem = (TILE_X + 3 * (size_t)F_out * KSIZE) * sizeof(float);
-  auto kernel = fused_frontend_kernel<T>;
+  auto kernel = fused_frontend_kernel<T, PADDED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -153,6 +181,26 @@ cudaError_t launch(const void* x, const void* bank, const float* sc,
   return cudaGetLastError();
 }
 
+template <bool PADDED>
+int dispatch(const void* x, const void* bank, const float* sc, void* out,
+             int B, int L, int C, int dtype, void* stream) {
+  const int F_out = C / 3;
+  const int T_out = (L - (KSIZE - 1)) / 3;
+  if (B <= 0 || B > 65535 || F_out <= 0 || T_out <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)launch<float, PADDED>(x, bank, sc, out, B, L, F_out, T_out,
+                                        s);
+    case 1:
+      return (int)launch<__nv_bfloat16, PADDED>(x, bank, sc, out, B, L, F_out,
+                                                T_out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x (B, L), bank (C, 129) of that type,
@@ -161,18 +209,14 @@ cudaError_t launch(const void* x, const void* bank, const float* sc,
 extern "C" int aasist_fused_frontend(const void* x, const void* bank,
                                      const float* sc, void* out, int B, int L,
                                      int C, int dtype, void* stream) {
-  const int F_out = C / 3;
-  const int T_out = (L - (KSIZE - 1)) / 3;
-  if (B <= 0 || B > 65535 || F_out <= 0 || T_out <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch<float>(x, bank, sc, out, B, L, F_out, T_out, s);
-    case 1:
-      return (int)launch<__nv_bfloat16>(x, bank, sc, out, B, L, F_out, T_out,
-                                        s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(x, bank, sc, out, B, L, C, dtype, stream);
+}
+
+// As aasist_fused_frontend, with out the zero-bordered
+// (B, C/3 + 2, (L-128)/3 + 2) frame.
+extern "C" int aasist_fused_frontend_padded(const void* x, const void* bank,
+                                            const float* sc, void* out, int B,
+                                            int L, int C, int dtype,
+                                            void* stream) {
+  return dispatch<true>(x, bank, sc, out, B, L, C, dtype, stream);
 }

@@ -26,14 +26,18 @@ from torch import nn as tnn
 from aasist_tpu_torch import nn
 from aasist_tpu_torch.models import layers as L
 from aasist_tpu_torch.ops.fused_frontend import fused_frontend
+from aasist_tpu_torch.ops.fused_stack import fused_frontend_block0
 
 
 class AasistModel(tnn.Module):
     """Eval-only AASIST with the original residual encoder.
 
     ``use_fused_frontend`` routes the frontend through the CUDA kernel
-    (``ops/fused_frontend``).  ``b0_chunks`` is accepted and ignored: it
-    split block 0 over the batch to fit TPU HBM, and the math is the same
+    (``ops/fused_frontend``).  ``use_fused_stack`` (eval only, default off;
+    the key ``tools/fused_stack.py`` names) runs the frontend and residual
+    block 0 as the CUDA kernel pair of ``ops/fused_stack`` instead, and
+    takes precedence.  ``b0_chunks`` is accepted and ignored: it split
+    block 0 over the batch to fit TPU HBM, and the math is the same
     unchunked.
     """
 
@@ -56,6 +60,8 @@ class AasistModel(tnn.Module):
         d_enc = filts[-1][-1]
         self.use_fused_frontend = bool(
             model_config.get("use_fused_frontend", False))
+        self.use_fused_stack = bool(
+            model_config.get("use_fused_stack", False))
 
         self.register_buffer("filterbank", torch.from_numpy(
             L.sinc_filterbank(filts[0], model_config["first_conv"])),
@@ -97,6 +103,15 @@ class AasistModel(tnn.Module):
         h = nn.batch_norm(self.first_bn, nn.max_pool(h, (3, 3)), axis=1)
         return nn.selu(h)
 
+    def fused_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L) waveform -> block 0's (B, C, C_bank // 3, (L - 128) // 9)
+        through the frontend + block-0 kernel pair."""
+        bn = self.first_bn
+        return fused_frontend_block0(
+            x, self.filterbank, {"weight": bn.weight, "bias": bn.bias},
+            {"mean": bn.running_mean, "var": bn.running_var},
+            self.encoder[0])
+
     def _branch(self, tag: str, out_t, out_s, master):
         l1 = getattr(self, f"HtrgGAT_layer_ST{tag}1")
         l2 = getattr(self, f"HtrgGAT_layer_ST{tag}2")
@@ -110,12 +125,19 @@ class AasistModel(tnn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) waveform -> (last_hidden (B, 5 * g1), logits (B, 2))."""
+        if self.training and self.use_fused_stack:
+            raise RuntimeError("use_fused_stack is eval only: the frontend "
+                               "+ block-0 kernel pair has no backward")
         if self.training:
             raise NotImplementedError(
                 "only the eval forward is ported; call model.eval() "
                 "(training comes in a later slice, see ROADMAP.md)")
-        e = self.frontend(x.to(self.filterbank.dtype).contiguous())
-        for block in self.encoder:
+        x = x.to(self.filterbank.dtype).contiguous()
+        if self.use_fused_stack:
+            e, blocks = self.fused_stack(x), self.encoder[1:]
+        else:
+            e, blocks = self.frontend(x), self.encoder
+        for block in blocks:
             e = block(e)                                      # (B,C,F,T)
 
         e_s = e.abs().amax(dim=3).transpose(1, 2) + self.pos_S   # (B,F,C)

@@ -9,6 +9,7 @@ rebuilt, an unchanged one is reused.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aasist_tpu_torch"
@@ -68,3 +69,9 @@ def load(name: str) -> Library:
         os.replace(tmp, out)     # atomic: concurrent builders never see half
     _loaded[name] = Library(ctypes.CDLL(str(out)), out, seconds, log)
     return _loaded[name]
+
+
+def load_all(names: Sequence[str]) -> Dict[str, Library]:
+    """``load`` several sources, their nvcc builds all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -47,6 +47,53 @@ def _fold_bn(bn_p, bn_s) -> torch.Tensor:
     return torch.cat([scale, shift]).contiguous()
 
 
+def launch(name: str, x: torch.Tensor, bank: torch.Tensor,
+           bn_p: Mapping[str, torch.Tensor], bn_s: Mapping[str, torch.Tensor],
+           padded: bool) -> torch.Tensor:
+    """Check a CUDA call of the frontend kernel and launch it: the output is
+    (B, 1, F, T), or with ``padded`` the (B, F + 2, T + 2) zero-bordered
+    frame.  Raises on what the kernel does not take and when the launch
+    fails; ``name`` heads the messages."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if x.dim() != 2 or bank.dim() != 2 or bank.shape[1] != KSIZE:
+        raise ValueError(f"{name}: expected x (B, L) and bank (C, {KSIZE}), "
+                         f"got {tuple(x.shape)} and {tuple(bank.shape)}")
+    if bank.dtype != x.dtype or bank.device != x.device:
+        raise TypeError(f"{name}: bank must match x's dtype and device")
+    if not (x.is_contiguous() and bank.is_contiguous()):
+        raise ValueError(f"{name}: x and bank must be contiguous")
+    b, length = x.shape
+    c = bank.shape[0]
+    f_out, t_out = c // 3, (length - (KSIZE - 1)) // 3
+    if not (0 < b <= 65535 and f_out > 0 and t_out > 0):
+        raise ValueError(f"{name}: unsupported shape B={b}, L={length}, "
+                         f"C={c}")
+    sc = _fold_bn(bn_p, bn_s)
+    if sc.device != x.device:
+        raise TypeError(f"{name}: BatchNorm tensors must be on x's device")
+
+    from aasist_tpu_torch.ops import _build
+    lib = _build.load("fused_frontend").lib
+    fn = (lib.aasist_fused_frontend_padded if padded
+          else lib.aasist_fused_frontend)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    shape = (b, f_out + 2, t_out + 2) if padded else (b, 1, f_out, t_out)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), bank.data_ptr(), sc.data_ptr(),
+                 out.data_ptr(), b, length, c, _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {err})")
+    return out
+
+
 def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
                    bn_p: Mapping[str, torch.Tensor],
                    bn_s: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -59,45 +106,7 @@ def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
     """
     if x.device.type == "cpu":
         return fused_frontend_reference(x, bank, bn_p, bn_s)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_frontend: unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"fused_frontend: dtype {x.dtype} not supported "
-                        "(float32 or bfloat16)")
-    if x.dim() != 2 or bank.dim() != 2 or bank.shape[1] != KSIZE:
-        raise ValueError(f"fused_frontend: expected x (B, L) and bank "
-                         f"(C, {KSIZE}), got {tuple(x.shape)} and "
-                         f"{tuple(bank.shape)}")
-    if bank.dtype != x.dtype or bank.device != x.device:
-        raise TypeError("fused_frontend: bank must match x's dtype and "
-                        "device")
-    if not (x.is_contiguous() and bank.is_contiguous()):
-        raise ValueError("fused_frontend: x and bank must be contiguous")
-    b, length = x.shape
-    c = bank.shape[0]
-    f_out, t_out = c // 3, (length - (KSIZE - 1)) // 3
-    if not (0 < b <= 65535 and f_out > 0 and t_out > 0):
-        raise ValueError(f"fused_frontend: unsupported shape B={b}, "
-                         f"L={length}, C={c}")
-    sc = _fold_bn(bn_p, bn_s)
-    if sc.device != x.device:
-        raise TypeError("fused_frontend: BatchNorm tensors must be on "
-                        "x's device")
-
-    from aasist_tpu_torch.ops import _build
-    lib = _build.load("fused_frontend").lib
-    fn = lib.aasist_fused_frontend
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty((b, 1, f_out, t_out), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), bank.data_ptr(), sc.data_ptr(),
-                 out.data_ptr(), b, length, c, _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"fused_frontend: CUDA launch failed "
-                           f"(cudaError_t {err})")
+    out = launch("fused_frontend", x, bank, bn_p, bn_s, padded=False)
     fused_frontend.launches += 1
     return out
 

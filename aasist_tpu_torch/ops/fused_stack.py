@@ -1,0 +1,179 @@
+"""The sinc frontend and residual block 0 as a pair of CUDA kernels.
+
+Counterpart of ``tools/fused_stack.py`` (the JAX package's opt-in
+``use_fused_stack`` eval path): the exact replacement, to rounding, for
+
+    sinc conv (C x 129) -> |.| -> maxpool (3,3) -> BN -> SELU     (frontend)
+    -> conv1 (1->C, (2,3)) -> bn2 -> SELU -> conv2 (C->C, (2,3))
+       + downsample (1->C, (1,3)) -> maxpool (1,3)                (block 0)
+
+``fused_frontend_padded`` (``csrc/fused_frontend.cu``) writes the frontend
+into a zero-bordered (B, F + 2, T_z + 2) frame, ``fused_block0``
+(``csrc/fused_block0.cu``) takes that frame to the block's pooled
+(B, C, F, T_z // 3) output, and ``fused_frontend_block0`` chains the two.
+Each wrapper launches its kernel for CUDA tensors and raises on anything
+the kernel does not take; for CPU tensors it computes its plain PyTorch
+version (``*_reference``).  There is no fallback from one to the other.
+
+The TPU kernels' mod-9 / mod-3 polyphase packing and K=18 / off-split
+weight packing existed only because Mosaic has no stride-3 lane access;
+here the weights are folded (``fold_block0``) and laid out for the CUDA
+kernel on the device, with no host sync.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Mapping, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from aasist_tpu_torch import nn
+from aasist_tpu_torch.ops import fused_frontend as fe
+
+BLOCK0_CHANNELS = 32      # the only width the block-0 kernel is built for
+
+
+def fused_frontend_padded_reference(x: torch.Tensor, bank: torch.Tensor,
+                                    bn_p: Mapping[str, torch.Tensor],
+                                    bn_s: Mapping[str, torch.Tensor]
+                                    ) -> torch.Tensor:
+    """The plain version: (B, L) -> (B, C // 3 + 2, (L - 128) // 3 + 2),
+    the frontend's output with a zero border of one row and one column."""
+    return F.pad(fe.fused_frontend_reference(x, bank, bn_p, bn_s)[:, 0],
+                 (1, 1, 1, 1))
+
+
+def fused_frontend_padded(x: torch.Tensor, bank: torch.Tensor,
+                          bn_p: Mapping[str, torch.Tensor],
+                          bn_s: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """(B, L) waveform -> the frontend's (B, C // 3, (L - 128) // 3) output
+    inside a zero-bordered (B, C // 3 + 2, (L - 128) // 3 + 2) frame, in
+    ``x``'s dtype: the input layout of ``fused_block0``.
+
+    Arguments as ``ops.fused_frontend.fused_frontend``.  Every launch adds
+    one to ``fused_frontend_padded.launches``.
+    """
+    if x.device.type == "cpu":
+        return fused_frontend_padded_reference(x, bank, bn_p, bn_s)
+    out = fe.launch("fused_frontend_padded", x, bank, bn_p, bn_s,
+                    padded=True)
+    fused_frontend_padded.launches += 1
+    return out
+
+
+fused_frontend_padded.launches = 0
+
+
+class Block0Params(NamedTuple):
+    """Block 0's eval weights folded for the kernel, float32 (the block-0
+    half of ``tools/fused_stack.py:FusedStackParams``; the frontend's BN
+    fold is ``ops.fused_frontend._fold_bn``)."""
+    w1: torch.Tensor       # (C, 6) conv1 taps [df*3+dt] times bn2's scale
+    shift1: torch.Tensor   # (C,) bn2 shift + conv1 bias times bn2's scale
+    w2: torch.Tensor       # (C, 6, C) conv2 taps [ci][df*3+dt][co]
+    wd: torch.Tensor       # (C, 3) downsample taps
+    bias: torch.Tensor     # (C,) conv2 bias + downsample bias
+
+
+def _check_block0(block: torch.nn.Module, name: str) -> None:
+    ds = getattr(block, "conv_downsample", None)
+    if ds is None or block.conv1.in_channels != 1:
+        raise ValueError(
+            f"{name}: needs the first residual block, 1 -> C channels with "
+            "a downsample conv (filts[1] = [1, C] with C > 1)")
+
+
+def _bias(conv: torch.nn.Conv2d) -> torch.Tensor:
+    if conv.bias is None:
+        return conv.weight.new_zeros(conv.out_channels, dtype=torch.float32)
+    return conv.bias.detach().float()
+
+
+def fold_block0(block: torch.nn.Module) -> Block0Params:
+    """Fold ``block``'s bn2 and conv1 bias into conv1, and lay out its
+    weights for ``csrc/fused_block0.cu``, on the weights' device."""
+    _check_block0(block, "fold_block0")
+    c1, bn, c2, ds = block.conv1, block.bn2, block.conv2, block.conv_downsample
+    c = c1.out_channels
+    scale = bn.weight.detach().float() * torch.rsqrt(
+        bn.running_var.float() + nn.BN_EPS)
+    shift = (bn.bias.detach().float() - bn.running_mean.float() * scale
+             + _bias(c1) * scale)
+    w1 = c1.weight.detach().float().reshape(c, 6) * scale[:, None]
+    w2 = c2.weight.detach().float().permute(1, 2, 3, 0).reshape(c, 6, c)
+    wd = ds.weight.detach().float().reshape(c, 3)
+    return Block0Params(w1.contiguous(), shift.contiguous(), w2.contiguous(),
+                        wd.contiguous(), (_bias(c2) + _bias(ds)).contiguous())
+
+
+def fused_block0_reference(z: torch.Tensor, block: torch.nn.Module
+                           ) -> torch.Tensor:
+    """The plain version: the frame's interior through ``block``'s own
+    chain (F.conv2d, F.batch_norm, SELU, F.conv2d + downsample,
+    F.max_pool2d): (B, F + 2, T_z + 2) -> (B, C, F, T_z // 3)."""
+    return block(z[:, None, 1:-1, 1:-1])
+
+
+def fused_block0(z: torch.Tensor, block: torch.nn.Module) -> torch.Tensor:
+    """Residual block 0 (eval) on the zero-bordered frame that
+    ``fused_frontend_padded`` writes: (B, F + 2, T_z + 2) ->
+    (B, C, F, T_z // 3), in ``z``'s dtype.
+
+    ``block`` is a ``models.layers.ResidualBlock`` from 1 to C channels
+    with a downsample; the kernel takes C = 32.  Every launch adds one to
+    ``fused_block0.launches``.
+    """
+    _check_block0(block, "fused_block0")
+    if z.device.type == "cpu":
+        return fused_block0_reference(z, block)
+    if z.device.type != "cuda":
+        raise ValueError(f"fused_block0: unsupported device {z.device}")
+    if z.dtype not in fe._DTYPES:
+        raise TypeError(f"fused_block0: dtype {z.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if z.dim() != 3 or not z.is_contiguous():
+        raise ValueError(f"fused_block0: expected a contiguous (B, F + 2, "
+                         f"T_z + 2) frame, got {tuple(z.shape)}")
+    b, f_out, t_z = z.shape[0], z.shape[1] - 2, z.shape[2] - 2
+    c = block.conv1.out_channels
+    if c != BLOCK0_CHANNELS:
+        raise ValueError(f"fused_block0: the kernel takes "
+                         f"{BLOCK0_CHANNELS} channels, the block has {c}")
+    if not (b > 0 and f_out > 0 and t_z // 3 > 0):
+        raise ValueError(f"fused_block0: unsupported frame "
+                         f"{tuple(z.shape)}")
+    p = fold_block0(block)
+    if p.w1.device != z.device:
+        raise TypeError("fused_block0: the block's weights must be on z's "
+                        "device")
+
+    from aasist_tpu_torch.ops import _build
+    fn = _build.load("fused_block0").lib.aasist_fused_block0
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((b, c, f_out, t_z // 3), dtype=z.dtype,
+                      device=z.device)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        err = fn(z.data_ptr(), *(t.data_ptr() for t in p), out.data_ptr(),
+                 b, f_out, t_z, c, fe._DTYPES[z.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block0: CUDA launch failed "
+                           f"(cudaError_t {err})")
+    fused_block0.launches += 1
+    return out
+
+
+fused_block0.launches = 0
+
+
+def fused_frontend_block0(x: torch.Tensor, bank: torch.Tensor,
+                          bn_p: Mapping[str, torch.Tensor],
+                          bn_s: Mapping[str, torch.Tensor],
+                          block: torch.nn.Module) -> torch.Tensor:
+    """(B, L) waveform -> block 0's (B, C, C_bank // 3, (L - 128) // 9)
+    output: ``fused_frontend_padded`` then ``fused_block0``."""
+    return fused_block0(fused_frontend_padded(x, bank, bn_p, bn_s), block)

@@ -40,15 +40,17 @@ class Scorer:
     pass ``device="cpu"`` to score on the CPU.  ``bf16=True`` casts the
     float32 weights and buffers to bfloat16 and computes in it.
     ``use_fused_frontend=None`` turns the CUDA sinc-frontend kernel on when
-    computing in bf16 on a CUDA device.  The caller's model is not changed:
-    the scorer works on its own copy.
+    computing in bf16 on a CUDA device.  ``use_fused_stack=True`` runs the
+    frontend and residual block 0 through the CUDA kernel pair of
+    ``ops/fused_stack`` instead (off by default).  The caller's model is not
+    changed: the scorer works on its own copy.
     """
 
     def __init__(self, model: torch.nn.Module, *,
                  batch_size: Optional[int] = None,
                  window: int = FIXED_EVAL_LEN, bf16: bool = True,
                  use_fused_frontend: Optional[bool] = None,
-                 device=None):
+                 use_fused_stack: bool = False, device=None):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -68,6 +70,11 @@ class Scorer:
             use_fused_frontend = bf16 and device.type == "cuda"
         if hasattr(model, "use_fused_frontend"):
             model.use_fused_frontend = bool(use_fused_frontend)
+        if hasattr(model, "use_fused_stack"):
+            model.use_fused_stack = bool(use_fused_stack)
+        elif use_fused_stack:
+            raise ValueError(f"Scorer: {type(model).__name__} has no fused "
+                             "frontend + block-0 path")
         self.model = model
 
     @classmethod

@@ -5,26 +5,33 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the CUDA kernel from csrc/ with nvcc;
-  3. the fused sinc-frontend kernel against its plain PyTorch version on the
-     card, at the main path's shape (128, 64600) in float32 and bfloat16,
-     and on a freq-masked bank at B = 3, L = 16001; kernel, plain and
-     cuDNN-chain times beside the kernel's bound;
-  4. the main path: Scorer.from_config("configs/AASIST.conf") with the
-     pretrained weights serves 5 requests of 1-6 s, then 131 (one full and
-     one ragged batch of 128).  Launch counts are reset just before and read
-     just after.  Its scores are checked against an f32 scorer without the
-     kernel; f32 with and without the kernel, f32 against the reference
-     golden, and bf16 against f32 are checked on the golden's input;
-  5. Scorer throughput at batch 128 in bf16, kernel on and off, and a
-     torch.profiler breakdown of one such batch by CUDA kernel (printed, not
-     gated; the whole table goes to chiprun_out/profile_bf16_b128.txt);
+  2. build the CUDA kernels from csrc/ with nvcc, all at once;
+  3. each kernel against its plain PyTorch version on the card, at the main
+     path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
+     L = 16001 (the sinc frontend on a freq-masked bank there): the fused
+     frontend, then the padded frontend and block 0 of the frontend +
+     block-0 pair; kernel, plain and cuDNN-chain times beside each kernel's
+     bound;
+  4. the main paths, each with its launch counts reset just before and read
+     just after: Scorer.from_config("configs/AASIST.conf") with the
+     pretrained weights (fused frontend) serves 5 requests of 1-6 s, then
+     131 (one full and one ragged batch of 128); a Scorer with
+     use_fused_stack=True serves the same requests.  Their scores are
+     checked against an f32 scorer without kernels; on the golden's input,
+     f32 logits with each kernel path on and off, f32 against the reference
+     golden, and bf16 against f32;
+  5. Scorer throughput at batch 128 in bf16 with the stack on, with the
+     frontend kernel only, and with both off, and torch.profiler breakdowns
+     of one such batch by CUDA kernel with the frontend kernel and with the
+     stack (printed, not gated; the whole tables go to
+     chiprun_out/profile_bf16_b128.txt and profile_bf16_b128_stack.txt);
   6. one JSON line describing every ported kernel, the card's line, and
      last the device JSON line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -45,8 +52,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # bf16 logits: the whole trunk in bf16 (8-bit mantissa, 7 convs) drifts by
 # ~1e-2 on logits of magnitude ~2 (CPU measurement on the golden input);
 # 0.1 leaves room for cuDNN's other summation orders.
+# Block 0 is gated on max|kernel - plain| / max|plain|.  f32: the JAX
+# pair's own gate (tools/test_fused_stack.py), 5e-5.  bf16: the plain chain
+# rounds to bf16 after conv1, the BN, the SELU, conv2, the downsample and
+# the add; the kernel rounds y1 once (conv2's tensor-core operand) and the
+# output once.  Each rounding is at most 2^-9 relative; the y1 roundings
+# enter conv2's 192-term sums as uncorrelated errors, so the two differ by
+# an ulp or two of the largest outputs (one ulp there is 2^-8 to 2^-7 of
+# max|plain|): 2e-2 of max|plain|.
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
 TOL_BF16_KERNEL = dict(atol=2e-2, rtol=2e-2)
+TOL_BLOCK0 = {"float32": 5e-5, "bfloat16": 2e-2}
 TOL_MODEL_ON_OFF = dict(atol=2e-4, rtol=1e-4)
 TOL_GOLDEN = dict(atol=2e-2, rtol=2e-2)
 TOL_BF16_LOGITS = dict(atol=0.1, rtol=0.0)
@@ -85,21 +101,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def frontend_bound(b: int, length: int, c: int, dtype: str):
+def frontend_bound(b: int, length: int, c: int, dtype: str,
+                   padded: bool = False):
     """(least ms, what bounds it) for one fused-frontend call: the conv's
     FLOPs over the peak for the type, or the bytes read and written once
-    over the memory rate, whichever is larger."""
+    over the memory rate, whichever is larger.  ``padded``: the output is
+    the zero-bordered frame."""
     f_out, t_out = c // 3, (length - 128) // 3
     flops = 2.0 * b * (3 * f_out) * (3 * t_out) * 129
     esize = 4 if dtype == "float32" else 2
-    nbytes = esize * (b * length + c * 129 + b * f_out * t_out) + 16
+    n_out = (f_out + 2) * (t_out + 2) if padded else f_out * t_out
+    nbytes = esize * (b * length + c * 129 + b * n_out) + 16
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_forward(model, x, card: str) -> None:
+def block0_bound(b: int, length: int, c: int, dtype: str):
+    """(least ms, what bounds it) for one fused_block0 call on the frame of
+    a (b, length) waveform: conv1 at the F + 1 y1 rows and the conv2 and
+    downsample taps at the 3 * T_out positions the pool keeps, over the peak
+    for the type, or the frame read and the output written once over the
+    memory rate, whichever is larger."""
+    f, t_z = 23, (length - 128) // 3
+    t_out = t_z // 3
+    flops = 2.0 * b * (c * 6 * (f + 1) * min(3 * t_out + 1, t_z)
+                       + (c * c * 6 + c * 3) * f * 3 * t_out)
+    esize = 4 if dtype == "float32" else 2
+    nbytes = (esize * (b * (f + 2) * (t_z + 2) + b * c * f * t_out)
+              + 4 * (c * 6 + c + c * c * 6 + c * 3 + c))
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_forward(model, x, card: str, label: str, fname: str) -> None:
     """Device time of one forward by kernel name, and the device's idle
     share of the window, from torch.profiler."""
     import torch
@@ -124,12 +162,12 @@ def profile_forward(model, x, card: str) -> None:
     busy = sum(r[0] for r in rows)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    with open(out / "profile_bf16_b128.txt", "w") as f:
+    with open(out / fname, "w") as f:
         f.write(f"{card}\nwindow {wall_ms:.3f} ms, device busy {busy:.3f} "
                 f"ms\n")
         for ms, n, key in rows:
             f.write(f"{ms:10.3f} ms  {n:5d}x  {key}\n")
-    print(f"[profile] bf16 forward batch 128, kernel on: window "
+    print(f"[profile] bf16 forward batch 128, {label}: window "
           f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f}  [{card}]")
     for ms, n, key in rows[:12]:
@@ -153,6 +191,9 @@ def main() -> int:
     from aasist_tpu_torch.ops import _build
     from aasist_tpu_torch.ops.fused_frontend import (
         fused_frontend, fused_frontend_reference)
+    from aasist_tpu_torch.ops.fused_stack import (
+        fused_block0, fused_block0_reference, fused_frontend_padded,
+        fused_frontend_padded_reference)
     from aasist_tpu_torch.registry import build_model
     from aasist_tpu_torch.serving import Scorer
     from aasist_tpu_torch.weights import load_npz
@@ -169,11 +210,15 @@ def main() -> int:
           "f32)")
 
     # ---------------------------------------------------------------- 2
-    lib = _build.load("fused_frontend")
-    print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    libs = _build.load_all(["fused_frontend", "fused_block0"])
+    print(f"[build] {len(libs)} sources in parallel: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
 
     # ---------------------------------------------------------------- 3
     cfg = load_config(ROOT / "configs" / "AASIST.conf")
@@ -236,6 +281,87 @@ def main() -> int:
         del x, got, ref
     torch.cuda.empty_cache()
 
+    # the frontend + block-0 pair; block 0's plain version is its cuDNN
+    # chain (conv1, BN, SELU, conv2, downsample, add, max_pool2d)
+    stack_results = {}
+    for dname, b, length in [("float32", 128, 64600),
+                             ("bfloat16", 128, 64600),
+                             ("float32", 3, 16001), ("bfloat16", 3, 16001)]:
+        dtype = getattr(torch, dname)
+        tag = f"{dname} B={b} L={length}"
+        x = (torch.randn((b, length), generator=gen, device="cuda")
+             * 0.1).to(dtype)
+        bank = model32.filterbank.detach().to("cuda", dtype)
+        bn_p, bn_s = bn_dicts(dtype)
+        block = copy.deepcopy(model32.encoder[0]).to("cuda", dtype)
+        with torch.inference_mode():
+            z = fused_frontend_padded(x, bank, bn_p, bn_s)
+            torch.cuda.synchronize()
+            zr = fused_frontend_padded_reference(x, bank, bn_p, bn_s)
+            shape = (b, 25, (length - 128) // 3 + 2)
+            check(tuple(z.shape) == shape and z.dtype == dtype,
+                  f"padded frontend output {tuple(z.shape)} {z.dtype}, "
+                  f"want {shape}")
+            border = torch.cat([z[:, 0], z[:, -1]], 1).abs().max().item() + \
+                torch.cat([z[:, :, 0], z[:, :, -1]], 1).abs().max().item()
+            check(border == 0, f"padded frontend border not zero, {tag}")
+            tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
+            err_z = (z.float() - zr.float()).abs().max().item()
+            print(f"[kernel] fused_frontend_padded {tag}: max|kernel-plain| "
+                  f"= {err_z:.3e} (atol {tol['atol']}, rtol {tol['rtol']}),"
+                  f" border exactly 0")
+            check(torch.allclose(z.float(), zr.float(), **tol),
+                  f"fused_frontend_padded disagrees with its plain version, "
+                  f"{tag}")
+            del zr
+
+            out = fused_block0(z, block)
+            torch.cuda.synchronize()
+            ref = fused_block0_reference(z, block)
+            shape = (b, 32, 23, (length - 128) // 9)
+            check(tuple(out.shape) == shape and out.dtype == dtype,
+                  f"block-0 output {tuple(out.shape)} {out.dtype}, want "
+                  f"{shape}")
+            check(bool(torch.isfinite(out).all()), "block-0 output not "
+                  "finite")
+            err_b = (out.float() - ref.float()).abs().max().item()
+            rel_b = err_b / ref.float().abs().max().item()
+            print(f"[kernel] fused_block0 {tag}: max|kernel-plain| = "
+                  f"{err_b:.3e}, / max|plain| = {rel_b:.3e} (gate "
+                  f"{TOL_BLOCK0[dname]})")
+            check(rel_b <= TOL_BLOCK0[dname],
+                  f"fused_block0 disagrees with its plain version, {tag}")
+            del out, ref
+            if b == 128:
+                ms_z = cuda_ms(
+                    lambda: fused_frontend_padded(x, bank, bn_p, bn_s), 20)
+                plain_z = cuda_ms(lambda: fused_frontend_padded_reference(
+                    x, bank, bn_p, bn_s), 10)
+                lib_z = cuda_ms(lambda: F.pad(library_chain(
+                    x, bank, bn_p, bn_s)[:, 0], (1, 1, 1, 1)), 10)
+                bound_z, by_z = frontend_bound(b, length, 70, dname,
+                                               padded=True)
+                ms_b = cuda_ms(lambda: fused_block0(z, block), 10)
+                plain_b = cuda_ms(lambda: fused_block0_reference(z, block), 5)
+                bound_b, by_b = block0_bound(b, length, 32, dname)
+                stack_results[dname] = {
+                    "fused_frontend_padded": dict(
+                        max_abs_err=err_z, ms=ms_z, plain_ms=plain_z,
+                        library_ms=lib_z, bound_ms=bound_z, bound_by=by_z),
+                    "fused_block0": dict(
+                        max_abs_err=err_b, max_rel_err=rel_b, ms=ms_b,
+                        plain_ms=plain_b, library_ms=plain_b,
+                        bound_ms=bound_b, bound_by=by_b)}
+                print(f"[kernel] fused_frontend_padded {tag}: kernel "
+                      f"{ms_z:.4f} ms, plain {plain_z:.4f} ms, cuDNN chain "
+                      f"{lib_z:.4f} ms, bound {bound_z:.4f} ms ({by_z})  "
+                      f"[{card}]")
+                print(f"[kernel] fused_block0 {tag}: kernel {ms_b:.4f} ms, "
+                      f"plain (= the cuDNN chain) {plain_b:.4f} ms, bound "
+                      f"{bound_b:.4f} ms ({by_b})  [{card}]")
+        del x, z, block
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4
     scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
                                 weights_path=weights)
@@ -264,14 +390,43 @@ def main() -> int:
           f"fused_frontend launched {launches['fused_frontend']} times for "
           f"{n_batches} batches")
 
+    # the frontend + block-0 pair's path, the same requests
+    stack = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
+                               weights_path=weights, use_fused_stack=True)
+    check(stack.model.use_fused_stack, "Scorer(use_fused_stack=True)")
+    stack.warmup()
+    torch.cuda.synchronize()
+    fused_frontend.launches = 0
+    fused_frontend_padded.launches = fused_block0.launches = 0
+    t0 = time.perf_counter()
+    stack_scores = [stack.score_waveforms(r) for r in requests]
+    wall = time.perf_counter() - t0
+    stack_launches = {"fused_frontend": fused_frontend.launches,
+                      "fused_frontend_padded": fused_frontend_padded.launches,
+                      "fused_block0": fused_block0.launches}
+    print(f"[main] stack: served {[len(s) for s in stack_scores]} requests "
+          f"in {n_batches} batches, {wall:.3f} s; launches {stack_launches}")
+    for r, s in zip(requests, stack_scores):
+        check(len(s) == len(r), f"{len(s)} scores for {len(r)} requests")
+        check(bool(np.isfinite(s).all()), "non-finite scores")
+    for name in ("fused_frontend_padded", "fused_block0"):
+        check(stack_launches[name] == n_batches,
+              f"{name} launched {stack_launches[name]} times for "
+              f"{n_batches} batches")
+    check(stack_launches["fused_frontend"] == 0,
+          "the stack path also launched the fused frontend")
+
     s32_off = Scorer(model32, bf16=False, use_fused_frontend=False)
     s32_on = Scorer(model32, bf16=False, use_fused_frontend=True)
+    s32_stack = Scorer(model32, bf16=False, use_fused_stack=True)
     ref_scores = [s32_off.score_waveforms(r) for r in requests]
-    err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
-              for a, b in zip(scores, ref_scores))
-    print(f"[main] bf16 kernel scores vs f32 unfused scores: max|d| = "
-          f"{err:.3e} (atol {TOL_BF16_LOGITS['atol']})")
-    check(err <= TOL_BF16_LOGITS["atol"], "main-path scores off the f32 ones")
+    for tag, got_scores in (("kernel", scores), ("stack", stack_scores)):
+        err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
+                  for a, b in zip(got_scores, ref_scores))
+        print(f"[main] bf16 {tag} scores vs f32 unfused scores: max|d| = "
+              f"{err:.3e} (atol {TOL_BF16_LOGITS['atol']})")
+        check(err <= TOL_BF16_LOGITS["atol"],
+              f"main-path {tag} scores off the f32 ones")
 
     golden = np.load(ROOT / "tests" / "goldens" / "aasist_golden.npz")
     xg = torch.from_numpy(golden["x"]).cuda()
@@ -279,46 +434,58 @@ def main() -> int:
         l_on = s32_on.model(xg)[1].float().cpu().numpy()
         l_off = s32_off.model(xg)[1].float().cpu().numpy()
         l_bf16 = scorer.model(xg)[1].float().cpu().numpy()
-    d_onoff = np.abs(l_on - l_off).max()
-    print(f"[main] f32 logits kernel on vs off: max|d| = {d_onoff:.3e}")
-    check(np.allclose(l_on, l_off, **TOL_MODEL_ON_OFF),
-          "f32 logits with and without the kernel disagree")
-    d_gold = np.abs(l_on - golden["logits"]).max()
-    print(f"[main] f32 kernel logits vs reference golden: max|d| = "
-          f"{d_gold:.3e}")
-    check(np.allclose(l_on, golden["logits"], **TOL_GOLDEN),
-          "f32 logits off the reference golden")
-    check((np.argsort(l_on[:, 1])
-           == np.argsort(golden["logits"][:, 1])).all(),
-          "bonafide-score order differs from the golden's")
-    d_bf16 = np.abs(l_bf16 - l_on).max()
-    print(f"[main] bf16 kernel logits vs f32: max|d| = {d_bf16:.3e}")
-    check(np.allclose(l_bf16, l_on, **TOL_BF16_LOGITS),
-          "bf16 logits off the f32 ones")
-    del s32_on, s32_off
+        l_stack = s32_stack.model(xg)[1].float().cpu().numpy()
+        l_stack16 = stack.model(xg)[1].float().cpu().numpy()
+    for tag, l32, l16 in (("kernel", l_on, l_bf16),
+                          ("stack", l_stack, l_stack16)):
+        d_onoff = np.abs(l32 - l_off).max()
+        print(f"[main] f32 logits {tag} on vs off: max|d| = {d_onoff:.3e}")
+        check(np.allclose(l32, l_off, **TOL_MODEL_ON_OFF),
+              f"f32 logits with and without the {tag} disagree")
+        d_gold = np.abs(l32 - golden["logits"]).max()
+        print(f"[main] f32 {tag} logits vs reference golden: max|d| = "
+              f"{d_gold:.3e}")
+        check(np.allclose(l32, golden["logits"], **TOL_GOLDEN),
+              f"f32 {tag} logits off the reference golden")
+        check((np.argsort(l32[:, 1])
+               == np.argsort(golden["logits"][:, 1])).all(),
+              f"{tag}: bonafide-score order differs from the golden's")
+        d_bf16 = np.abs(l16 - l32).max()
+        print(f"[main] bf16 {tag} logits vs f32: max|d| = {d_bf16:.3e}")
+        check(np.allclose(l16, l32, **TOL_BF16_LOGITS),
+              f"bf16 {tag} logits off the f32 ones")
+    del s32_on, s32_off, s32_stack, stack
 
     # ---------------------------------------------------------------- 5
     rows = np.stack([pad_to_fixed(w) for w in requests[1][:128]])
     xb = torch.from_numpy(rows).cuda()
-    thr = {True: [], False: []}
-    fwd = {True: [], False: []}
-    for on in (True, False, False, True):
-        scorer.model.use_fused_frontend = on
+    # (use_fused_frontend, use_fused_stack) of each mode
+    modes = {"stack": (False, True), "frontend kernel": (True, False),
+             "both off": (False, False)}
+    thr = {m: [] for m in modes}
+    fwd = {m: [] for m in modes}
+    for mode in ("stack", "frontend kernel", "both off", "both off",
+                 "frontend kernel", "stack"):
+        (scorer.model.use_fused_frontend,
+         scorer.model.use_fused_stack) = modes[mode]
         scorer.score_batch(rows)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
             scorer.score_batch(rows)
-        thr[on].append(5 * 128 / (time.perf_counter() - t0))
+        thr[mode].append(5 * 128 / (time.perf_counter() - t0))
         with torch.inference_mode():
-            fwd[on].append(cuda_ms(lambda: scorer.model(xb), 5, warmup=1))
-    scorer.model.use_fused_frontend = True
-    profile_forward(scorer.model, xb, card)
-    for on in (True, False):
-        print(f"[throughput] bf16 Scorer batch 128, kernel "
-              f"{'on ' if on else 'off'}: {np.mean(thr[on]):.1f} utt/s "
-              f"(runs {[round(v, 1) for v in thr[on]]}), forward "
-              f"{np.mean(fwd[on]):.3f} ms/batch on the device  [{card}]")
+            fwd[mode].append(cuda_ms(lambda: scorer.model(xb), 5, warmup=1))
+    for mode, fname in (("frontend kernel", "profile_bf16_b128.txt"),
+                        ("stack", "profile_bf16_b128_stack.txt")):
+        (scorer.model.use_fused_frontend,
+         scorer.model.use_fused_stack) = modes[mode]
+        profile_forward(scorer.model, xb, card, mode, fname)
+    for mode in modes:
+        print(f"[throughput] bf16 Scorer batch 128, {mode}: "
+              f"{np.mean(thr[mode]):.1f} utt/s (runs "
+              f"{[round(v, 1) for v in thr[mode]]}), forward "
+              f"{np.mean(fwd[mode]):.3f} ms/batch on the device  [{card}]")
 
     # ---------------------------------------------------------------- 6
     r16, r32 = results["bfloat16"], results["float32"]
@@ -333,6 +500,17 @@ def main() -> int:
         "dtype": "bfloat16", "shape": [128, 64600],
         "float32": r32,
     }]
+    replaces = {"fused_frontend_padded": ("fused_frontend",
+                                          "tools/fused_stack.py:180"),
+                "fused_block0": ("fused_block0", "tools/fused_stack.py:250")}
+    for name, (src, where) in replaces.items():
+        k16 = stack_results["bfloat16"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"aasist_tpu_torch/csrc/{src}.cu", "replaces": where,
+            "launches": stack_launches[name], **k16,
+            "dtype": "bfloat16", "shape": [128, 64600],
+            "float32": stack_results["float32"][name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

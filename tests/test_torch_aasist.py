@@ -63,18 +63,21 @@ def small():
     return jm, params, state, tm
 
 
-@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("fused", [False, True, "stack"])
 def test_small_model_matches_jax(small, fused):
+    """Unfused, with the fused frontend (True), and with the frontend +
+    block-0 pair ("stack"), which the JAX model's unfused apply pins."""
     jm, params, state, tm = small
     x = (np.random.default_rng(12).standard_normal((2, 16000))
          * 0.05).astype(np.float32)
     (rh, rl), _ = jax.jit(lambda p, s, x: jm.apply(p, s, x, train=False))(
         params, state, x)
-    tm.use_fused_frontend = fused
+    tm.use_fused_frontend = fused is True
+    tm.use_fused_stack = fused == "stack"
     try:
         hidden, logits = _forward(tm, x)
     finally:
-        tm.use_fused_frontend = False
+        tm.use_fused_frontend = tm.use_fused_stack = False
     np.testing.assert_allclose(logits, np.asarray(rl), atol=1e-4, rtol=0)
     np.testing.assert_allclose(hidden, np.asarray(rh), atol=1e-4, rtol=0)
 
