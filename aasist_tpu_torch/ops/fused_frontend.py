@@ -10,7 +10,7 @@ take; for CPU tensors it computes the plain PyTorch version,
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,18 +47,21 @@ def _fold_bn(bn_p, bn_s) -> torch.Tensor:
     return torch.cat([scale, shift]).contiguous()
 
 
-def launch(name: str, x: torch.Tensor, bank: torch.Tensor,
-           bn_p: Mapping[str, torch.Tensor], bn_s: Mapping[str, torch.Tensor],
-           padded: bool) -> torch.Tensor:
-    """Check a CUDA call of the frontend kernel and launch it: the output is
-    (B, 1, F, T), or with ``padded`` the (B, F + 2, T + 2) zero-bordered
-    frame.  Raises on what the kernel does not take and when the launch
-    fails; ``name`` heads the messages."""
+def check_args(name: str, x: torch.Tensor, bank: torch.Tensor,
+               bn_p: Mapping[str, torch.Tensor],
+               bn_s: Mapping[str, torch.Tensor], dtypes=_DTYPES,
+               max_rows: Optional[int] = None
+               ) -> Tuple[int, int, int, torch.Tensor]:
+    """Raise on what a frontend kernel does not take (device, one of
+    ``dtypes``, shapes, more than ``max_rows`` pooled rows, contiguity);
+    ``name`` heads the messages.  Returns (B, L, C, the folded BatchNorm's
+    (scale, shift) on the device)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {x.dtype} not supported "
-                        "(float32 or bfloat16)")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: dtype {x.dtype} not supported ({names}"
+                        f"{' only' if len(dtypes) == 1 else ''})")
     if x.dim() != 2 or bank.dim() != 2 or bank.shape[1] != KSIZE:
         raise ValueError(f"{name}: expected x (B, L) and bank (C, {KSIZE}), "
                          f"got {tuple(x.shape)} and {tuple(bank.shape)}")
@@ -68,13 +71,25 @@ def launch(name: str, x: torch.Tensor, bank: torch.Tensor,
         raise ValueError(f"{name}: x and bank must be contiguous")
     b, length = x.shape
     c = bank.shape[0]
-    f_out, t_out = c // 3, (length - (KSIZE - 1)) // 3
-    if not (0 < b <= 65535 and f_out > 0 and t_out > 0):
+    if not (0 < b <= 65535 and 0 < c // 3 <= (max_rows or c)
+            and (length - (KSIZE - 1)) // 3 > 0):
         raise ValueError(f"{name}: unsupported shape B={b}, L={length}, "
                          f"C={c}")
     sc = _fold_bn(bn_p, bn_s)
     if sc.device != x.device:
         raise TypeError(f"{name}: BatchNorm tensors must be on x's device")
+    return b, length, c, sc
+
+
+def launch(name: str, x: torch.Tensor, bank: torch.Tensor,
+           bn_p: Mapping[str, torch.Tensor], bn_s: Mapping[str, torch.Tensor],
+           padded: bool) -> torch.Tensor:
+    """Check a CUDA call of the frontend kernel and launch it: the output is
+    (B, 1, F, T), or with ``padded`` the (B, F + 2, T + 2) zero-bordered
+    frame.  Raises on what the kernel does not take and when the launch
+    fails; ``name`` heads the messages."""
+    b, length, c, sc = check_args(name, x, bank, bn_p, bn_s)
+    f_out, t_out = c // 3, (length - (KSIZE - 1)) // 3
 
     from aasist_tpu_torch.ops import _build
     lib = _build.load("fused_frontend").lib

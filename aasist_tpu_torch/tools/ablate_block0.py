@@ -54,14 +54,12 @@ def variant_source(src: str, cuts) -> str:
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("ablate_block0: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
-    from aasist_tpu_torch.config import load_config
     from aasist_tpu_torch.ops import _build
     from aasist_tpu_torch.ops import fused_stack as fs
-    from aasist_tpu_torch.registry import build_model
-    from aasist_tpu_torch.weights import load_npz
+    from aasist_tpu_torch.tools import _common
+
+    _common.need_card("ablate_block0")
 
     src = (_build.CSRC / "fused_block0.cu").read_text()
     out_dir = _build.BUILD_DIR / "ablate_block0"
@@ -79,21 +77,16 @@ def main() -> int:
         if proc.returncode != 0:
             raise SystemExit(f"ablate_block0: nvcc failed for {name}:\n{log}")
 
-    cfg = load_config(ROOT / "configs" / "AASIST.conf")
-    model = load_npz(build_model(cfg.model_config), ROOT / cfg.model_path)
-    model = model.to("cuda", torch.bfloat16)
-    bn = model.first_bn
+    model, bank, bn_p, bn_s = _common.pretrained(torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = (torch.randn((128, 64600), generator=gen, device="cuda")
          * 0.1).bfloat16()
     with torch.inference_mode():
-        z = fs.fused_frontend_padded(
-            x, model.filterbank, {"weight": bn.weight, "bias": bn.bias},
-            {"mean": bn.running_mean, "var": bn.running_var})
+        z = fs.fused_frontend_padded(x, bank, bn_p, bn_s)
         for run in range(2):
             for name in VARIANTS:
                 lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-                _build._loaded["fused_block0"] = _build.Library(
+                _build._loaded[("fused_block0", ())] = _build.Library(
                     lib, out_dir / f"{name}.so", 0.0, "")
                 fn = lambda: fs.fused_block0(z, model.encoder[0])
                 fn()
@@ -107,7 +100,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 print(f"run {run} {name:9s} {start.elapsed_time(end) / 5:.4f}"
                       " ms", flush=True)
-    _build._loaded.pop("fused_block0")
+    _build._loaded.pop(("fused_block0", ()))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
          "--format=csv,noheader"],

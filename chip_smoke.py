@@ -5,13 +5,15 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the CUDA kernels from csrc/ with nvcc, all at once;
+  2. build the four CUDA sources from csrc/ with nvcc, all at once;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
      L = 16001 (the sinc frontend on a freq-masked bank there): the fused
      frontend, then the padded frontend and block 0 of the frontend +
-     block-0 pair; kernel, plain and cuDNN-chain times beside each kernel's
-     bound;
+     block-0 pair, then the tensor-core frontend in its two store layouts
+     (bfloat16 only, also at the probes' B = 256) and the frontend +
+     block-0 head; kernel, plain and cuDNN-chain times beside each
+     kernel's bound;
   4. the main paths, each with its launch counts reset just before and read
      just after: Scorer.from_config("configs/AASIST.conf") with the
      pretrained weights (fused frontend) serves 5 requests of 1-6 s, then
@@ -25,7 +27,11 @@ Phases, each of which raises (exit code 1) on failure:
      of one such batch by CUDA kernel with the frontend kernel and with the
      stack (printed, not gated; the whole tables go to
      chiprun_out/profile_bf16_b128.txt and profile_bf16_b128_stack.txt);
-  6. one JSON line describing every ported kernel, the card's line, and
+  6. the three frontend probes through their entry points
+     (aasist_tpu_torch.tools.probe_frontend_variants, probe_fe_fix,
+     probe_feb0_ablate), with the new kernels' launch counts reset just
+     before and read just after;
+  7. one JSON line describing every ported kernel, the card's line, and
      last the device JSON line.
 """
 
@@ -33,16 +39,11 @@ from __future__ import annotations
 
 import copy
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM data-sheet peaks (dense), for the kernels' bounds
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES_PER_S = 3.35e12
 
 # Tolerances.  f32: the JAX kernel's own gate (tests/test_fused_frontend.py).
 # bf16 frontend: the plain chain rounds to bf16 after the conv, the BN and
@@ -60,9 +61,27 @@ PEAK_BYTES_PER_S = 3.35e12
 # enter conv2's 192-term sums as uncorrelated errors, so the two differ by
 # an ulp or two of the largest outputs (one ulp there is 2^-8 to 2^-7 of
 # max|plain|): 2e-2 of max|plain|.
+# The tensor-core frontend (bf16 only) multiplies the same bf16 operands
+# exactly and sums in f32 in another order, then rounds once: the bf16
+# frontend gate holds for it, and for the head's x0.  The head's y1 is gated
+# like block 0, on max|kernel - plain| / max|plain|.  f32: 5e-5, the JAX
+# pair's gate; conv1 is six f32 FMAs on an x0 within 2e-6 of the plain one.
+# bf16: the plain chain rounds after conv1, the BN and the SELU and reads
+# bf16 conv1 weights, the kernel rounds once after f32 sums over folded f32
+# taps, and their x0 differ by an ulp; three or four half-ulp errors at the
+# largest outputs (one ulp is 2^-8 to 2^-7 of max|plain|).  A sound kernel
+# reads 1.6e-2 to 1.9e-2 on the inputs here and in probe_feb0_ablate, and
+# the same kernel with one conv1 tap zeroed reads 0.97 (that probe prints
+# both, NVIDIA H100 80GB HBM3, 700.00 W): the gate is 4e-2, twice the
+# one and a twentieth of the other.  It is wide for small outputs, so the
+# bf16 y1 is also held element by element against conv1 + bn2 + SELU
+# computed in f32 from the kernel's own x0, which differs from it by one
+# rounding (tools/_common.py:HEAD_Y1_OWN_X0_TOL, with its reason; sound
+# 0.5 of the tolerance, bf16 accumulation 32, the zeroed tap 4.7e3).
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
 TOL_BF16_KERNEL = dict(atol=2e-2, rtol=2e-2)
 TOL_BLOCK0 = {"float32": 5e-5, "bfloat16": 2e-2}
+TOL_HEAD_Y1 = {"float32": 5e-5, "bfloat16": 4e-2}
 TOL_MODEL_ON_OFF = dict(atol=2e-4, rtol=1e-4)
 TOL_GOLDEN = dict(atol=2e-2, rtol=2e-2)
 TOL_BF16_LOGITS = dict(atol=0.1, rtol=0.0)
@@ -77,64 +96,11 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def frontend_bound(b: int, length: int, c: int, dtype: str,
-                   padded: bool = False):
-    """(least ms, what bounds it) for one fused-frontend call: the conv's
-    FLOPs over the peak for the type, or the bytes read and written once
-    over the memory rate, whichever is larger.  ``padded``: the output is
-    the zero-bordered frame."""
-    f_out, t_out = c // 3, (length - 128) // 3
-    flops = 2.0 * b * (3 * f_out) * (3 * t_out) * 129
-    esize = 4 if dtype == "float32" else 2
-    n_out = (f_out + 2) * (t_out + 2) if padded else f_out * t_out
-    nbytes = esize * (b * length + c * 129 + b * n_out) + 16
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def block0_bound(b: int, length: int, c: int, dtype: str):
-    """(least ms, what bounds it) for one fused_block0 call on the frame of
-    a (b, length) waveform: conv1 at the F + 1 y1 rows and the conv2 and
-    downsample taps at the 3 * T_out positions the pool keeps, over the peak
-    for the type, or the frame read and the output written once over the
-    memory rate, whichever is larger."""
-    f, t_z = 23, (length - 128) // 3
-    t_out = t_z // 3
-    flops = 2.0 * b * (c * 6 * (f + 1) * min(3 * t_out + 1, t_z)
-                       + (c * c * 6 + c * 3) * f * 3 * t_out)
-    esize = 4 if dtype == "float32" else 2
-    nbytes = (esize * (b * (f + 2) * (t_z + 2) + b * c * f * t_out)
-              + 4 * (c * 6 + c + c * c * 6 + c * 3 + c))
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def max_abs_diff(a, b) -> float:
+    """max |a - b| in float32, a slice of the batch at a time (the head's
+    y1 is 8.4 GB in float32)."""
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a.split(16), b.split(16)))
 
 
 def profile_forward(model, x, card: str, label: str, fname: str) -> None:
@@ -189,6 +155,11 @@ def main() -> int:
     from aasist_tpu_torch.config import load_config
     from aasist_tpu_torch.data.dataset import pad_to_fixed
     from aasist_tpu_torch.ops import _build
+    from aasist_tpu_torch.ops.frontend_head import (
+        fused_frontend_head, fused_frontend_head_reference)
+    from aasist_tpu_torch.ops.frontend_variants import (
+        fused_frontend_dot_bm, fused_frontend_dot_bm_reference,
+        fused_frontend_dot_fm, fused_frontend_dot_fm_reference)
     from aasist_tpu_torch.ops.fused_frontend import (
         fused_frontend, fused_frontend_reference)
     from aasist_tpu_torch.ops.fused_stack import (
@@ -196,6 +167,11 @@ def main() -> int:
         fused_frontend_padded_reference)
     from aasist_tpu_torch.registry import build_model
     from aasist_tpu_torch.serving import Scorer
+    from aasist_tpu_torch.tools import (
+        probe_fe_fix, probe_feb0_ablate, probe_frontend_variants)
+    from aasist_tpu_torch.tools._common import (
+        HEAD_Y1_OWN_X0_TOL, block0_bound, card_line, cuda_ms, frontend_bound,
+        head_bound, head_y1_excess)
     from aasist_tpu_torch.weights import load_npz
 
     # ---------------------------------------------------------------- 1
@@ -211,10 +187,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    libs = _build.load_all(["fused_frontend", "fused_block0"])
+    libs = _build.load_all([(n, None) for n in (
+        "fused_frontend", "fused_block0", "frontend_dot", "frontend_head")])
     print(f"[build] {len(libs)} sources in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
-    for lib in libs.values():
+    for lib in libs:
         print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -362,6 +339,144 @@ def main() -> int:
         del x, z, block
         torch.cuda.empty_cache()
 
+    # the frontend on the tensor cores, in its two store layouts (bf16 only)
+    dots = {"fused_frontend_dot_fm": (fused_frontend_dot_fm,
+                                      fused_frontend_dot_fm_reference, 0),
+            "fused_frontend_dot_bm": (fused_frontend_dot_bm,
+                                      fused_frontend_dot_bm_reference, 1)}
+    dot_results = {}
+    for b, length, masked in [(128, 64600, False), (256, 64600, False),
+                              (3, 16001, True)]:
+        tag = f"bfloat16 B={b} L={length}{' masked' if masked else ''}"
+        x = (torch.randn((b, length), generator=gen, device="cuda")
+             * 0.1).bfloat16()
+        bank = model32.filterbank.detach().to("cuda", torch.bfloat16).clone()
+        if masked:
+            bank[10:20] = 0
+        bn_p, bn_s = bn_dicts(torch.bfloat16)
+        t_out = (length - 128) // 3
+        v1 = fused_frontend(x, bank, bn_p, bn_s)[:, 0]
+        for name, (fn, ref_fn, row_axis) in dots.items():
+            got = fn(x, bank, bn_p, bn_s)
+            torch.cuda.synchronize()
+            ref = ref_fn(x, bank, bn_p, bn_s)
+            shape = (24, b, t_out) if row_axis == 0 else (b, 24, t_out)
+            check(tuple(got.shape) == shape and got.dtype == torch.bfloat16
+                  and got.is_contiguous(),
+                  f"{name} output {tuple(got.shape)} {got.dtype}, want "
+                  f"{shape}")
+            check(bool(torch.isfinite(got).all()), f"{name} not finite")
+            rows = got.movedim(row_axis, 0)                  # (24, B, T)
+            row_max = rows.abs().amax(dim=(1, 2)).float()
+            check(row_max[23].item() == 0 and bool((row_max[:23] > 0).all()),
+                  f"{name}: row 23 and nothing else must be zero, {tag}")
+            err = (got.float() - ref.float()).abs().max().item()
+            d_v1 = (rows[:23].movedim(0, 1).float()
+                    - v1.float()).abs().max().item()
+            print(f"[kernel] {name} {tag}: max|kernel-plain| = {err:.3e} "
+                  f"(atol {TOL_BF16_KERNEL['atol']}, rtol "
+                  f"{TOL_BF16_KERNEL['rtol']}), row 23 exactly 0; "
+                  f"max|kernel - fused_frontend| = {d_v1:.3e} (not gated)")
+            check(torch.allclose(got.float(), ref.float(), **TOL_BF16_KERNEL),
+                  f"{name} disagrees with its plain version, {tag}")
+            if b == 128:
+                ms = cuda_ms(lambda: fn(x, bank, bn_p, bn_s), 20)
+                plain = cuda_ms(lambda: ref_fn(x, bank, bn_p, bn_s), 10)
+
+                def lib_fn():
+                    h = F.pad(library_chain(x, bank, bn_p, bn_s)[:, 0],
+                              (0, 0, 0, 1))
+                    return (h.permute(1, 0, 2).contiguous() if row_axis == 0
+                            else h)
+                libms = cuda_ms(lib_fn, 10)
+                bound, by = frontend_bound(b, length, 70, "bfloat16", rows=24)
+                dot_results[name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=libms,
+                    bound_ms=bound, bound_by=by)
+                print(f"[kernel] {name} {tag}: kernel {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by})  [{card}]")
+            del got, ref, rows
+        del x, v1
+    torch.cuda.empty_cache()
+
+    # the frontend + block-0 head: x0 gated like the frontend, y1 like
+    # block 0
+    def head_library_chain(x, bank, bn_p, bn_s, block):
+        h = library_chain(x, bank, bn_p, bn_s)
+        y = F.conv2d(h, block.conv1.weight, block.conv1.bias, padding=(1, 1))
+        y = F.batch_norm(y, block.bn2.running_mean, block.bn2.running_var,
+                         block.bn2.weight, block.bn2.bias, training=False,
+                         eps=1e-5)
+        return F.selu(y), F.pad(h[:, 0], (0, 0, 0, 1))
+
+    head_results = {}
+    for dname, b, length, masked in cases:
+        dtype = getattr(torch, dname)
+        tag = f"{dname} B={b} L={length}{' masked' if masked else ''}"
+        x = (torch.randn((b, length), generator=gen, device="cuda")
+             * 0.1).to(dtype)
+        bank = model32.filterbank.detach().to("cuda", dtype).clone()
+        if masked:
+            bank[10:20] = 0
+        bn_p, bn_s = bn_dicts(dtype)
+        block = copy.deepcopy(model32.encoder[0]).to("cuda", dtype)
+        t_out = (length - 128) // 3
+        with torch.inference_mode():
+            y1, x0 = fused_frontend_head(x, bank, bn_p, bn_s, block)
+            torch.cuda.synchronize()
+            ry1, rx0 = fused_frontend_head_reference(x, bank, bn_p, bn_s,
+                                                     block)
+            check(tuple(y1.shape) == (b, 32, 24, t_out)
+                  and tuple(x0.shape) == (b, 24, t_out)
+                  and y1.dtype == x0.dtype == dtype,
+                  f"head outputs {tuple(y1.shape)} {tuple(x0.shape)} "
+                  f"{y1.dtype}")
+            check(bool(torch.isfinite(y1).all())
+                  and bool(torch.isfinite(x0).all()), "head not finite")
+            row_max = x0.abs().amax(dim=(0, 2)).float()
+            check(row_max[23].item() == 0 and bool((row_max[:23] > 0).all()),
+                  f"head x0: row 23 and nothing else must be zero, {tag}")
+            tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
+            err_x0 = max_abs_diff(x0, rx0)
+            err_y1 = max_abs_diff(y1, ry1)
+            rel_y1 = err_y1 / ry1.abs().max().float().item()
+            print(f"[kernel] fused_frontend_head {tag}: x0 max|kernel-plain|"
+                  f" = {err_x0:.3e} (atol {tol['atol']}, rtol {tol['rtol']}),"
+                  f" row 23 exactly 0; y1 max|kernel-plain| = {err_y1:.3e}, "
+                  f"/ max|plain| = {rel_y1:.3e} (gate {TOL_HEAD_Y1[dname]})")
+            check(torch.allclose(x0.float(), rx0.float(), **tol),
+                  f"the head's x0 disagrees with its plain version, {tag}")
+            check(rel_y1 <= TOL_HEAD_Y1[dname],
+                  f"the head's y1 disagrees with its plain version, {tag}")
+            if dname == "bfloat16":
+                excess = head_y1_excess(y1, x0, block, **HEAD_Y1_OWN_X0_TOL)
+                print(f"[kernel] fused_frontend_head {tag}: y1 against the "
+                      f"f32 head of its own x0, worst element over (atol "
+                      f"{HEAD_Y1_OWN_X0_TOL['atol']}, rtol "
+                      f"{HEAD_Y1_OWN_X0_TOL['rtol']:.3e}) = {excess:.3e} "
+                      f"(gate 1)")
+                check(excess <= 1, f"the head's y1 is not conv1 + bn2 + "
+                      f"SELU of its x0 element by element, {tag}")
+            del y1, x0, ry1, rx0
+            if b == 128:
+                ms = cuda_ms(lambda: fused_frontend_head(
+                    x, bank, bn_p, bn_s, block), 10)
+                plain = cuda_ms(lambda: fused_frontend_head_reference(
+                    x, bank, bn_p, bn_s, block), 5)
+                libms = cuda_ms(lambda: head_library_chain(
+                    x, bank, bn_p, bn_s, block), 5)
+                bound, by = head_bound(b, length, 70, dname)
+                head_results[dname] = dict(
+                    max_abs_err=err_y1, max_rel_err=rel_y1,
+                    x0_max_abs_err=err_x0, ms=ms, plain_ms=plain,
+                    library_ms=libms, bound_ms=bound, bound_by=by)
+                print(f"[kernel] fused_frontend_head {tag}: kernel {ms:.4f} "
+                      f"ms, plain {plain:.4f} ms, cuDNN chain {libms:.4f} "
+                      f"ms, bound {bound:.4f} ms ({by})  [{card}]")
+        del x, block
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4
     scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
                                 weights_path=weights)
@@ -488,6 +603,26 @@ def main() -> int:
               f"{np.mean(fwd[mode]):.3f} ms/batch on the device  [{card}]")
 
     # ---------------------------------------------------------------- 6
+    del scorer, xb
+    torch.cuda.empty_cache()
+    probed = {"fused_frontend_dot_fm": fused_frontend_dot_fm,
+              "fused_frontend_dot_bm": fused_frontend_dot_bm,
+              "fused_frontend_head": fused_frontend_head}
+    for fn in probed.values():
+        fn.launches = 0
+    for probe, argv in ((probe_frontend_variants, ["--iters", "3"]),
+                        (probe_fe_fix, ["--iters", "3"]),
+                        (probe_feb0_ablate, ["--iters", "3"])):
+        pname = probe.__name__.rsplit(".", 1)[-1]
+        print(f"[probe] {pname} {' '.join(argv)}")
+        rc = probe.main(argv)
+        check(rc == 0, f"{pname} returned {rc}")
+    probe_launches = {name: fn.launches for name, fn in probed.items()}
+    print(f"[probe] launches {probe_launches}")
+    for name, n in probe_launches.items():
+        check(n > 0, f"{name} was not launched by its probe")
+
+    # ---------------------------------------------------------------- 7
     r16, r32 = results["bfloat16"], results["float32"]
     kernels = [{
         "name": "fused_frontend", "route": "cuda",
@@ -511,6 +646,21 @@ def main() -> int:
             "launches": stack_launches[name], **k16,
             "dtype": "bfloat16", "shape": [128, 64600],
             "float32": stack_results["float32"][name]})
+    probes = {"fused_frontend_dot_fm": "tools/probe_frontend_variants.py:62",
+              "fused_frontend_dot_bm": "tools/probe_fe_fix.py:43"}
+    for name, where in probes.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
+            "replaces": where, "launches": probe_launches[name],
+            **dot_results[name], "dtype": "bfloat16", "shape": [128, 64600]})
+    kernels.append({
+        "name": "fused_frontend_head", "route": "cuda",
+        "source": "aasist_tpu_torch/csrc/frontend_head.cu",
+        "replaces": "tools/probe_feb0_ablate.py:69",
+        "launches": probe_launches["fused_frontend_head"],
+        **head_results["bfloat16"], "dtype": "bfloat16",
+        "shape": [128, 64600], "float32": head_results["float32"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
