@@ -58,19 +58,93 @@
 // are stored as zero, not selu(shift): the folded shift makes selu of an
 // all-zero input nonzero.  y1 has F + 1 rows (conv1's freq padding), all
 // real; the downsample reads rows 0..F-1 of z only.
+//
+// Compile-time variants of the bf16 kernel (preprocessor definitions; a
+// build with none of them is the kernel described above, and a build with
+// any of them holds the bf16 kernel only).  They are the counterparts of
+// three TPU probes of block 0, wrapped by ops/block0_variants.py, whose
+// header states each variant's function:
+//
+//   B0_EPI=1..4  where conv1's epilogue rounds to bf16
+//                (tools/probe_b0_epi.py:_kernel; 1 is also the bf16epi
+//                construct of tools/probe_b0_constructs.py:_kernel):
+//                1 (vA) the f32 sum is rounded, the shift added and SELU run
+//                  on packed bf16 pairs (each add / mul / ex2 takes two
+//                  values); the downsample is rounded and its bias added
+//                  in bf16;
+//                2 (vB) f32 SELU, rounded, halo mask applied in bf16;
+//                3 (vD) f32 SELU, halo mask applied in f32, rounded;
+//                4 (vF) as 1 with SELU's exponential in f32.
+//   B0_RMW       conv2's per-tap partial sums leave the registers: they are
+//                accumulated by read-modify-write into an f32 tile in shared
+//                memory (each lane its own words) and read back for the pool
+//                (tools/probe_b0_constructs.py:81-85).
+//   B0_B2SLICE   the bias is read from shared memory at each use, not held
+//                in a register (tools/probe_b0_constructs.py:96-97).
+//   B0_STAGE=0..4  the item's work ends after the stage (dma, fill, conv1,
+//                epi, conv2 of tools/probe_b0_ablate.py:_kernel) and what it
+//                computed is reduced into the output tile, so that nothing is
+//                dead code.  Stages 0-2 read one pooled column to the left
+//                of the full kernel's tile: their frame tile starts four
+//                columns earlier.  Stage 4 (conv2 "dense only") zeroes the
+//                A fragments of the two off-split (pool phase, tap) pairs.
+//   B0_CUT=bits  one phase removed, for timing only (the output is
+//                meaningless): 1 the frame-tile load, 2 conv1 + SELU, 4
+//                conv2's MMA loop, 8 the output store (the pool and the
+//                downsample are still computed).
+//
+// Variant builds read `bias` as (3, C): conv2's bias plus the downsample's,
+// the downsample's, conv2's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#if defined(B0_EPI) || defined(B0_RMW) || defined(B0_B2SLICE) || \
+    defined(B0_STAGE) || defined(B0_CUT)
+#define B0_VARIANT 1
+#endif
+#ifndef B0_EPI
+#define B0_EPI 0
+#endif
+#ifndef B0_STAGE
+#define B0_STAGE 5
+#endif
+#ifndef B0_CUT
+#define B0_CUT 0
+#endif
+
 namespace {
+
+constexpr int EPI = B0_EPI;       // conv1's epilogue (0: f32, rounded once)
+constexpr int STAGE = B0_STAGE;   // 5: the whole block
+constexpr int CUT = B0_CUT;
+constexpr bool BF16_EPI = EPI == 1 || EPI == 4;
+#ifdef B0_RMW
+constexpr bool RMW = true;
+#else
+constexpr bool RMW = false;
+#endif
+#ifdef B0_B2SLICE
+constexpr bool B2SLICE = true;
+#else
+constexpr bool B2SLICE = false;
+#endif
+#ifdef B0_VARIANT
+constexpr int NBIAS = 3;          // bias rows: sum, downsample's, conv2's
+#else
+constexpr int NBIAS = 1;
+#endif
+static_assert(EPI >= 0 && EPI <= 4 && STAGE >= 0 && STAGE <= 5 && CUT >= 0 &&
+              CUT < 16, "unknown variant");
 
 constexpr int C = 32;             // block-0 channels (filts[1][1])
 constexpr int TO = 32;            // pooled columns per tile
 constexpr int TP = 3 * TO;        // conv2 positions per tile
 constexpr int YW = TP + 2;        // y1 columns per tile (time halo 1 + 1)
-constexpr int ZW = TP + 4;        // frame columns per tile
-constexpr int SMALL_SZ = C * 6 + C + C * 3 + C;   // w1, sh1, wd, bias
+constexpr int ZOFF = STAGE < 3 ? 4 : 0;   // extra frame columns on the left
+constexpr int ZW = TP + 4 + 2 * ZOFF;     // frame columns per tile
+constexpr int SMALL_SZ = C * 6 + C + C * 3 + NBIAS * C;  // w1, sh1, wd, bias
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -102,6 +176,9 @@ __device__ __forceinline__ void load_small(float* small, const float* w1,
   }
   for (int i = threadIdx.x; i < C * 3; i += blockDim.x)
     small[C * 7 + i] = wd[i];
+  if constexpr (NBIAS > 1)
+    for (int i = C + threadIdx.x; i < NBIAS * C; i += blockDim.x)
+      small[C * 10 + i] = bias[i];
 }
 
 // Work item -> (batch row, first output row, first pooled column) for
@@ -116,13 +193,13 @@ __device__ __forceinline__ Item item(int work, int n_tiles, int n_bands) {
   return {rest / n_bands, (rest % n_bands) * R, (work % n_tiles) * TO};
 }
 
-// zs[r][c] = frame[b, f0 + r, 3 t0 - 1 + c] for r < R + 2, zero outside
-// the frame.
+// zs[r][c] = frame[b, f0 + r, 3 t0 - 1 - ZOFF + c] for r < R + 2, zero
+// outside the frame.
 template <int R, typename T>
 __device__ __forceinline__ void load_frame_tile(float* zs, const T* z,
                                                 const Item& it, int F,
                                                 int T_z) {
-  const int zrows = F + 2, zcols = T_z + 2, c0 = 3 * it.t0 - 1;
+  const int zrows = F + 2, zcols = T_z + 2, c0 = 3 * it.t0 - 1 - ZOFF;
   const T* zb = z + it.b * zrows * zcols;
   for (int i = threadIdx.x; i < (R + 2) * ZW; i += blockDim.x) {
     const int pr = it.f0 + i / ZW, pc = c0 + i % ZW;
@@ -153,6 +230,7 @@ __device__ __forceinline__ float conv1_at(const float* zs, const float* w1s,
 }
 
 // ------------------------------------------------------------------ f32
+#ifndef B0_VARIANT
 namespace fma_k {
 constexpr int THREADS = 256;
 constexpr int R = 8;              // output rows per band
@@ -277,6 +355,8 @@ block0_fma_kernel(const float* __restrict__ z, const float* __restrict__ w1,
   }
 }
 
+#endif  // !B0_VARIANT
+
 // ----------------------------------------------------------------- bf16
 namespace tc {
 constexpr int R = 4;              // output rows per band
@@ -291,8 +371,12 @@ static_assert(2 * MT == 3 * U, "a lane's 2 MT rows are U whole pools");
 constexpr int W2_SZ = 6 * C * CIS;          // bf16 [tap][co][ci]
 constexpr int Y1_SZ = (R + 1) * YW * CIS;   // bf16 [row][col][ci]
 constexpr int ZS_SZ = (R + 2) * ZW;         // frame tile, f32
+constexpr int ST_P = C + 1;                 // pitch of a stage tile position
+constexpr int ST_SZ = R * TO * ST_P;        // a stage's output tile, f32
+constexpr int RMW_SZ = THREADS * MT * 16;   // conv2's sums, f32, RMW builds
+constexpr int EXTRA_SZ = (STAGE < 4 ? ST_SZ : 0) + (RMW ? RMW_SZ : 0);
 constexpr size_t SMEM = (W2_SZ + Y1_SZ) * sizeof(__nv_bfloat16) +
-                        (ZS_SZ + SMALL_SZ) * sizeof(float);
+                        (ZS_SZ + SMALL_SZ + EXTRA_SZ) * sizeof(float);
 static_assert((W2_SZ + Y1_SZ) * sizeof(__nv_bfloat16) % 16 == 0, "align");
 }  // namespace tc
 
@@ -320,6 +404,67 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// SELU on a pair of bf16 values, every operation rounded to bf16 (the _rn
+// intrinsics keep the multiplies and the add from being contracted);
+// F32EXP: the exponential and its "- 1" in f32, rounded once.
+template <bool F32EXP>
+__device__ __forceinline__ __nv_bfloat162 selu_bf16x2(__nv_bfloat162 y) {
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  const __nv_bfloat162 pos = __hmax2(y, zero), neg = __hmin2(y, zero);
+  __nv_bfloat162 t;
+  if constexpr (F32EXP) {
+    const float2 n = __bfloat1622float2(neg);
+    t = __floats2bfloat162_rn(__expf(n.x) - 1.f, __expf(n.y) - 1.f);
+  } else {
+    t = __hsub2_rn(h2exp(neg), __float2bfloat162_rn(1.f));
+  }
+  return __hadd2_rn(
+      __hmul2_rn(__float2bfloat162_rn(SELU_SCALE), pos),
+      __hmul2_rn(__float2bfloat162_rn(SELU_SCALE * SELU_ALPHA), t));
+}
+
+// Two neighbouring channels of y1 from conv1's f32 sums a, b (the shift
+// included, except for the bf16 epilogues, which add sh2 in bf16); zero
+// outside the y1 extent.
+__device__ __forceinline__ __nv_bfloat162 y1_pair(float a, float b,
+                                                  bool valid,
+                                                  __nv_bfloat162 sh2) {
+  if constexpr (EPI == 0) {
+    return valid ? __floats2bfloat162_rn(selu_fast(a), selu_fast(b))
+                 : __floats2bfloat162_rn(0.f, 0.f);
+  } else if constexpr (EPI == 3) {
+    const float m = valid ? 1.f : 0.f;
+    return __floats2bfloat162_rn(selu_fast(a) * m, selu_fast(b) * m);
+  } else {
+    const __nv_bfloat162 m2 = __float2bfloat162_rn(valid ? 1.f : 0.f);
+    if constexpr (EPI == 2)
+      return __hmul2_rn(
+          __floats2bfloat162_rn(selu_fast(a), selu_fast(b)), m2);
+    else
+      return __hmul2_rn(
+          selu_bf16x2<EPI == 4>(
+              __hadd2_rn(__floats2bfloat162_rn(a, b), sh2)),
+          m2);
+  }
+}
+
+// A stage's f32 tile st[r][d][co] (pitch ST_P, so that both the stages'
+// channel-major writes and these time-major reads are free of bank
+// conflicts) -> out[b, co, f0 + r, t0 + d].
+__device__ __forceinline__ void store_stage_tile(const float* st,
+                                                 __nv_bfloat16* out,
+                                                 const Item& it, int F,
+                                                 int T_out) {
+  using namespace tc;
+  for (int i = threadIdx.x; i < C * R * TO; i += THREADS) {
+    const int d = i % TO, r = (i / TO) % R, co = i / (TO * R);
+    const int f = it.f0 + r, t = it.t0 + d;
+    if (f < F && t < T_out)
+      out[((it.b * C + co) * F + f) * (long long)T_out + t] =
+          __float2bfloat16(st[(r * TO + d) * ST_P + co]);
+  }
+}
+
 // Warp w owns output row w / 2 of the band, all 32 channels, at half
 // w % 2 of the tile's 96 positions (MT m16 tiles).  The M rows are
 // assigned so that each lane's accumulators hold whole pool windows: an
@@ -344,6 +489,8 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
   float* w1s = zs + ZS_SZ;
   const float* wds = w1s + C * 7;
   const float* bs = w1s + C * 10;
+  float* st = w1s + SMALL_SZ;                      // stages 0-3
+  float* rmw_tile = st + (STAGE < 4 ? ST_SZ : 0);  // B0_RMW
 
   const int tid = threadIdx.x;
   // w2 [ci][tap][co] (f32) -> [tap][co][ci] (bf16); ci 32..39 never read
@@ -352,6 +499,11 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
     w2b[(tap * C + co) * CIS + ci] = __float2bfloat16(w2[i]);
   }
   load_small(w1s, w1, sh1, wd, bias);
+  if constexpr ((CUT & 3) != 0) {      // a cut phase leaves its tile unset
+    for (int i = tid; i < Y1_SZ; i += THREADS)
+      y1b[i] = __float2bfloat16(0.f);
+    for (int i = tid; i < ZS_SZ; i += THREADS) zs[i] = 0.f;
+  }
 
   const int cp = 2 * (tid & 15);         // this thread's conv1 channels
   float wa[6], wb[6];
@@ -361,6 +513,9 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
     wb[k] = w1[(cp + 1) * 6 + k];
   }
   const float sa = sh1[cp], sb = sh1[cp + 1];
+  const __nv_bfloat162 sh2 = __floats2bfloat162_rn(sa, sb);
+  // the bf16 epilogues add the shift after the sum's rounding
+  const float a_init = BF16_EPI ? 0.f : sa, b_init = BF16_EPI ? 0.f : sb;
 
   const int lane = tid & 31, row = tid >> 6, half = (tid >> 5) & 1;
   const int g = lane >> 2, p0 = 48 * half;  // p0: first position of warp
@@ -381,10 +536,62 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
   for (int work = blockIdx.x; work < n_work; work += gridDim.x) {
     const Item it = item<R>(work, n_tiles, n_bands);
     __syncthreads();                     // last item's readers are done
-    load_frame_tile<R>(zs, z, it, F, T_z);
+    if constexpr (!(CUT & 1)) load_frame_tile<R>(zs, z, it, F, T_z);
     __syncthreads();
+
+    if constexpr (STAGE < 3) {
+      // tile column c is frame column 3 t0 - 5 + c: pooled column t0 + d
+      // starts at frame column 3 (t0 + d) - 5, tile column 3 d
+      if constexpr (STAGE < 2) {
+        for (int i = tid; i < C * R * TO; i += THREADS) {
+          const int d = i % TO, r = (i / TO) % R, co = i / (TO * R);
+          float v = 0.f;
+          if (co == 0) {                 // the other channels are zero
+            const float* zr = zs + r * ZW + 3 * d;
+            if constexpr (STAGE == 0) {
+              v = zr[0];
+            } else {
+#pragma unroll
+              for (int j = 0; j < 9; ++j) v += zr[j] + zr[ZW + j];
+            }
+          }
+          st[(r * TO + d) * ST_P + co] = v;
+        }
+      } else {
+        // conv1 + shift and downsample + bias at times 3 (t' - 1) + q,
+        // q = 0..2, summed; y1 time t reads tile columns t - 3 t0 + 5 + dt
+        const float da[3] = {wds[cp * 3], wds[cp * 3 + 1], wds[cp * 3 + 2]};
+        const float db[3] = {wds[cp * 3 + 3], wds[cp * 3 + 4],
+                             wds[cp * 3 + 5]};
+        for (int p = tid >> 4; p < R * TO; p += THREADS / 16) {
+          const int d = p % TO, r = p / TO;
+          const float* zr = zs + r * ZW + 3 * d + 2;
+          float z0[5], z1[5];
+#pragma unroll
+          for (int k = 0; k < 5; ++k) {
+            z0[k] = zr[k];
+            z1[k] = zr[ZW + k];
+          }
+          float a = 3.f * (sa + bs[C + cp]), b = 3.f * (sb + bs[C + cp + 1]);
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              a = fmaf(wa[k], z0[q + k], fmaf(wa[3 + k] + da[k], z1[q + k], a));
+              b = fmaf(wb[k], z0[q + k], fmaf(wb[3 + k] + db[k], z1[q + k], b));
+            }
+          st[p * ST_P + cp] = a;
+          st[p * ST_P + cp + 1] = b;
+        }
+      }
+      __syncthreads();
+      store_stage_tile(st, out, it, F, T_out);
+      continue;
+    }
+
     // y1b[r][col][ci] at y1 row f0 + r, time 3 t0 - 1 + col; zero outside
     // the y1 extent (rows 0..F, times 0..T_z-1)
+    if constexpr (!(CUT & 2))
     for (int run = tid >> 4; run < (R + 1) * (YW / RUN);
          run += THREADS / 16) {
       const int r = run / (YW / RUN), col0 = (run % (YW / RUN)) * RUN;
@@ -400,7 +607,7 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
       __nv_bfloat16* dst = y1b + (r * YW + col0) * CIS + cp;
 #pragma unroll
       for (int j = 0; j < RUN; ++j) {
-        float a = sa, b = sb;
+        float a = a_init, b = b_init;
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           a = fmaf(wa[k], z0[j + k], fmaf(wa[3 + k], z1[j + k], a));
@@ -408,11 +615,30 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
         }
         const bool valid = row_ok && t_col0 + j >= 0 && t_col0 + j < T_z;
         *reinterpret_cast<__nv_bfloat162*>(dst + j * CIS) =
-            valid ? __floats2bfloat162_rn(selu_fast(a), selu_fast(b))
-                  : __floats2bfloat162_rn(0.f, 0.f);
+            y1_pair(a, b, valid, sh2);
       }
     }
     __syncthreads();
+
+    if constexpr (STAGE == 3) {
+      // y1 time 3 t' + k is tile column 3 d + 1 + k; the downsample reads
+      // z row f (tile row r + 1) at tile columns 3 d + 1 + dt
+      for (int i = tid; i < C * R * TO; i += THREADS) {
+        const int co = i % C, d = (i / C) % TO, r = i / (C * TO);
+        const __nv_bfloat16* y0 = y1b + (r * YW + 3 * d) * CIS + co;
+        const __nv_bfloat16* y1r = y0 + YW * CIS;
+        const float* zr = zs + (r + 1) * ZW + 3 * d + 1;
+        const float ds = fmaf(wds[co * 3], zr[0],
+                              fmaf(wds[co * 3 + 1], zr[1],
+                                   wds[co * 3 + 2] * zr[2])) + bs[C + co];
+        st[(r * TO + d) * ST_P + co] =
+            to_f32(y0[CIS]) + to_f32(y1r[CIS]) + to_f32(y0[0]) +
+            to_f32(y1r[4 * CIS]) + to_f32(__float2bfloat16(ds));
+      }
+      __syncthreads();
+      store_stage_tile(st, out, it, F, T_out);
+      continue;
+    }
 
     const int f = it.f0 + row;
     if (f >= F) continue;                // no block-wide syncs below
@@ -423,7 +649,10 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    // B0_RMW: this lane's word (m, n, e) of the f32 tile
+    volatile float* rt = rmw_tile + (tid >> 5) * (MT * 16 * 32) + lane;
 
+    if constexpr (!(CUT & 4)) {
 #pragma unroll
     for (int tap = 0; tap < 6; ++tap) {
       const int df = tap / 3, dt = tap % 3;
@@ -440,10 +669,40 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
           uint32_t a[4];
           ldmatrix_x4(a_base + (((row + df) * YW + col) * CIS + kh * 16) * 2,
                       a[0], a[1], a[2], a[3]);
+          if constexpr (STAGE == 4) {
+            // dense only: rows 0-7 (a[0], a[2]) are slot 2 m, rows 8-15
+            // (a[1], a[3]) slot 2 m + 1, a slot's pool phase is slot % 3;
+            // phase 0 lacks the tap dt = 0 and phase 2 the tap dt = 2
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              if (dt != 1 && (2 * m + hh) % 3 == dt) a[hh] = a[hh + 2] = 0u;
+          }
 #pragma unroll
           for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, b[n]);
         }
       }
+      if constexpr (RMW) {               // this tap's partial sums
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              volatile float* w = rt + ((m * 4 + n) * 4 + e) * 32;
+              *w = tap == 0 ? acc[m][n][e] : *w + acc[m][n][e];
+              acc[m][n][e] = 0.f;
+            }
+      }
+    }
+    }
+    if constexpr (RMW && !(CUT & 4)) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[m][n][e] = rt[((m * 4 + n) * 4 + e) * 32];
     }
 
     // element e of tile (m, n): channel n*8 + 2*(lane%4) + (e & 1), slot
@@ -457,24 +716,35 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
         zz[u][k] = zs[(row + 1) * ZW + p0 + 3 * g + 24 * u + 1 + k];
     const int q0 = it.t0 + 16 * half + g;
     __nv_bfloat16* ob = out + (it.b * C * F + f) * (long long)T_out + q0;
+    // the bf16 epilogues add the downsample's bias in bf16 and conv2's
+    // after the pool; the others add their sum after the pool
+    const volatile float* bv = bs + (BF16_EPI ? 2 * C : 0);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int par = 0; par < 2; ++par) {
         const int co = n * 8 + 2 * (lane & 3) + par;
         const float d0 = wds[co * 3], d1 = wds[co * 3 + 1],
-                    d2 = wds[co * 3 + 2], bo = bs[co];
+                    d2 = wds[co * 3 + 2];
+        float bo = 0.f;
+        if constexpr (!B2SLICE) bo = bs[(BF16_EPI ? 2 * C : 0) + co];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           float v[3];
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
             const int slot = 3 * u + j;
-            const float ds = fmaf(d0, zz[u][j],
-                                  fmaf(d1, zz[u][j + 1], d2 * zz[u][j + 2]));
+            float ds = fmaf(d0, zz[u][j],
+                            fmaf(d1, zz[u][j + 1], d2 * zz[u][j + 2]));
+            if constexpr (BF16_EPI)
+              ds = __bfloat162float(__hadd_rn(__float2bfloat16(ds),
+                                              __float2bfloat16(bs[C + co])));
             v[j] = acc[slot / 2][n][2 * (slot % 2) + par] + ds;
           }
-          if (q0 + 8 * u < T_out)
+          if constexpr (B2SLICE) bo = bv[co];
+          // B0_CUT & 8: a bound no column is under, which the compiler
+          // cannot see through, so that only the store goes
+          if (q0 + 8 * u < ((CUT & 8) ? 0 : T_out))
             ob[(long long)co * F * T_out + 8 * u] = __float2bfloat16(
                 fmaxf(fmaxf(v[0], v[1]), v[2]) + bo);
         }
@@ -520,7 +790,9 @@ cudaError_t launch(K kernel, int threads, int rows, size_t smem,
 // the device: w1 (C, 6) conv1 taps [df*3+dt] times the bn2 scale, sh1 (C)
 // the folded shift, w2 (C, 6, C) conv2 taps [ci][df*3+dt][co], wd (C, 3)
 // downsample taps, bias (C) conv2 bias + downsample bias.  channels must be
-// 32.  Returns the launch's cudaError_t (0 on success).
+// 32.  A variant build (see the header) takes dtype 1 only and reads bias as
+// (3, C): that sum, the downsample's bias, conv2's bias.  Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int aasist_fused_block0(const void* z, const float* w1,
                                    const float* sh1, const float* w2,
                                    const float* wd, const float* bias,
@@ -530,10 +802,12 @@ extern "C" int aasist_fused_block0(const void* z, const float* w1,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+#ifndef B0_VARIANT
     case 0:
       return (int)launch<float>(block0_fma_kernel, fma_k::THREADS, fma_k::R,
                                 fma_k::SMEM, z, w1, sh1, w2, wd, bias, out,
                                 B, F, T_z, s);
+#endif
     case 1:
       return (int)launch<__nv_bfloat16>(block0_tc_kernel, tc::THREADS, tc::R,
                                         tc::SMEM, z, w1, sh1, w2, wd, bias,

@@ -24,7 +24,7 @@ kernel on the device, with no host sync.
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +116,57 @@ def fused_block0_reference(z: torch.Tensor, block: torch.nn.Module
     return block(z[:, None, 1:-1, 1:-1])
 
 
+def launch_block0(name: str, z: torch.Tensor, block: torch.nn.Module,
+                  defines: Optional[Mapping[str, object]] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  dtypes: Tuple[torch.dtype, ...] = tuple(fe._DTYPES)
+                  ) -> torch.Tensor:
+    """Check a CUDA call of the block-0 kernel and launch it: the frame
+    (B, F + 2, T_z + 2) -> (B, C, F, T_z // 3).  ``defines`` picks a
+    compile-time variant of ``csrc/fused_block0.cu`` and ``bias`` replaces
+    ``fold_block0``'s (``ops.block0_variants`` passes both); ``dtypes`` are
+    the frame types the build takes."""
+    if z.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {z.device}")
+    if z.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {z.dtype} not supported ("
+                        + " or ".join(str(d).split(".")[-1] for d in dtypes)
+                        + ")")
+    if z.dim() != 3 or not z.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous (B, F + 2, "
+                         f"T_z + 2) frame, got {tuple(z.shape)}")
+    b, f_out, t_z = z.shape[0], z.shape[1] - 2, z.shape[2] - 2
+    c = block.conv1.out_channels
+    if c != BLOCK0_CHANNELS:
+        raise ValueError(f"{name}: the kernel takes "
+                         f"{BLOCK0_CHANNELS} channels, the block has {c}")
+    if not (b > 0 and f_out > 0 and t_z // 3 > 0):
+        raise ValueError(f"{name}: unsupported frame "
+                         f"{tuple(z.shape)}")
+    p = fold_block0(block)
+    if p.w1.device != z.device:
+        raise TypeError(f"{name}: the block's weights must be on z's "
+                        "device")
+    if bias is not None:
+        p = p._replace(bias=bias)
+
+    from aasist_tpu_torch.ops import _build
+    fn = _build.load("fused_block0", defines).lib.aasist_fused_block0
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((b, c, f_out, t_z // 3), dtype=z.dtype,
+                      device=z.device)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        err = fn(z.data_ptr(), *(t.data_ptr() for t in p), out.data_ptr(),
+                 b, f_out, t_z, c, fe._DTYPES[z.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed "
+                           f"(cudaError_t {err})")
+    return out
+
+
 def fused_block0(z: torch.Tensor, block: torch.nn.Module) -> torch.Tensor:
     """Residual block 0 (eval) on the zero-bordered frame that
     ``fused_frontend_padded`` writes: (B, F + 2, T_z + 2) ->
@@ -128,41 +179,7 @@ def fused_block0(z: torch.Tensor, block: torch.nn.Module) -> torch.Tensor:
     _check_block0(block, "fused_block0")
     if z.device.type == "cpu":
         return fused_block0_reference(z, block)
-    if z.device.type != "cuda":
-        raise ValueError(f"fused_block0: unsupported device {z.device}")
-    if z.dtype not in fe._DTYPES:
-        raise TypeError(f"fused_block0: dtype {z.dtype} not supported "
-                        "(float32 or bfloat16)")
-    if z.dim() != 3 or not z.is_contiguous():
-        raise ValueError(f"fused_block0: expected a contiguous (B, F + 2, "
-                         f"T_z + 2) frame, got {tuple(z.shape)}")
-    b, f_out, t_z = z.shape[0], z.shape[1] - 2, z.shape[2] - 2
-    c = block.conv1.out_channels
-    if c != BLOCK0_CHANNELS:
-        raise ValueError(f"fused_block0: the kernel takes "
-                         f"{BLOCK0_CHANNELS} channels, the block has {c}")
-    if not (b > 0 and f_out > 0 and t_z // 3 > 0):
-        raise ValueError(f"fused_block0: unsupported frame "
-                         f"{tuple(z.shape)}")
-    p = fold_block0(block)
-    if p.w1.device != z.device:
-        raise TypeError("fused_block0: the block's weights must be on z's "
-                        "device")
-
-    from aasist_tpu_torch.ops import _build
-    fn = _build.load("fused_block0").lib.aasist_fused_block0
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty((b, c, f_out, t_z // 3), dtype=z.dtype,
-                      device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = fn(z.data_ptr(), *(t.data_ptr() for t in p), out.data_ptr(),
-                 b, f_out, t_z, c, fe._DTYPES[z.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"fused_block0: CUDA launch failed "
-                           f"(cudaError_t {err})")
+    out = launch_block0("fused_block0", z, block)
     fused_block0.launches += 1
     return out
 

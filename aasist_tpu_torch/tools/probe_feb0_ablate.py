@@ -96,11 +96,9 @@ def main(argv=None) -> int:
                   f"f32 head of its own x0: {excess:.3e}", flush=True)
         del plain, y1, x0
 
-        order = list(VARIANTS)
-        runs = {name: [] for name in VARIANTS}
-        for name in order + order[::-1]:
-            runs[name].append(_common.cuda_ms(run(name), args.iters))
-    for name in order:
+        runs = _common.two_runs({name: run(name) for name in VARIANTS},
+                                args.iters)
+    for name in VARIANTS:
         print(f"B={BATCH} bf16 {name:8s}: {sum(runs[name]) / 2:8.4f} "
               f"ms/batch (runs "
               f"{', '.join(f'{v:.4f}' for v in runs[name])}), bound "

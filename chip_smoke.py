@@ -5,7 +5,8 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the four CUDA sources from csrc/ with nvcc, all at once;
+  2. build the five CUDA sources from csrc/ and the seventeen variants of
+     fused_block0.cu with nvcc, all at once;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
      L = 16001 (the sinc frontend on a freq-masked bank there): the fused
@@ -13,7 +14,9 @@ Phases, each of which raises (exit code 1) on failure:
      block-0 pair, then the tensor-core frontend in its two store layouts
      (bfloat16 only, also at the probes' B = 256) and the frontend +
      block-0 head; kernel, plain and cuDNN-chain times beside each
-     kernel's bound;
+     kernel's bound; then every variant of the block-0 kernel (construct
+     sets, stages, cast ladder; bfloat16) and the tail kernels (three pools,
+     SELU + layout change; both types, one size with ragged tiles);
   4. the main paths, each with its launch counts reset just before and read
      just after: Scorer.from_config("configs/AASIST.conf") with the
      pretrained weights (fused frontend) serves 5 requests of 1-6 s, then
@@ -27,9 +30,10 @@ Phases, each of which raises (exit code 1) on failure:
      of one such batch by CUDA kernel with the frontend kernel and with the
      stack (printed, not gated; the whole tables go to
      chiprun_out/profile_bf16_b128.txt and profile_bf16_b128_stack.txt);
-  6. the three frontend probes through their entry points
+  6. the seven probes through their entry points
      (aasist_tpu_torch.tools.probe_frontend_variants, probe_fe_fix,
-     probe_feb0_ablate), with the new kernels' launch counts reset just
+     probe_feb0_ablate, probe_b0_constructs, probe_b0_ablate, probe_b0_epi,
+     probe_tail_constructs), with their kernels' launch counts reset just
      before and read just after;
   7. one JSON line describing every ported kernel, the card's line, and
      last the device JSON line.
@@ -78,10 +82,23 @@ ROOT = Path(__file__).resolve().parent
 # computed in f32 from the kernel's own x0, which differs from it by one
 # rounding (tools/_common.py:HEAD_Y1_OWN_X0_TOL, with its reason; sound
 # 0.5 of the tolerance, bf16 accumulation 32, the zeroed tap 4.7e3).
+# The block-0 variants (bf16) are gated against plain versions that repeat
+# the kernel's rounding sequence, by tools/_common.py:b0_readings, where the
+# gates stand with their reasons and readings: the sets with the default's
+# values at block 0's gate; the bf16 epilogues at one output ulp, nearer to
+# their own plain version than to the f32 epilogue's, and telling a zeroed
+# conv1 tap; stages dma .. epi at an ulp of the largest output and in the
+# mean, telling a zeroed downsample bias or frame row.  The block-0 probes
+# apply the same gates.
+# The pools pick one of three stored values: exact.
+# selu_to_nchw is SELU in f32 on both sides, rounded once: a bf16 ulp
+# (rtol 2^-7) or 1e-6 in f32.
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
 TOL_BF16_KERNEL = dict(atol=2e-2, rtol=2e-2)
 TOL_BLOCK0 = {"float32": 5e-5, "bfloat16": 2e-2}
 TOL_HEAD_Y1 = {"float32": 5e-5, "bfloat16": 4e-2}
+TOL_SELU_NCHW = {"float32": dict(atol=1e-6, rtol=1e-6),
+                 "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
 TOL_MODEL_ON_OFF = dict(atol=2e-4, rtol=1e-4)
 TOL_GOLDEN = dict(atol=2e-2, rtol=2e-2)
 TOL_BF16_LOGITS = dict(atol=0.1, rtol=0.0)
@@ -155,6 +172,8 @@ def main() -> int:
     from aasist_tpu_torch.config import load_config
     from aasist_tpu_torch.data.dataset import pad_to_fixed
     from aasist_tpu_torch.ops import _build
+    from aasist_tpu_torch.ops import block0_variants as bv
+    from aasist_tpu_torch.ops import tail_constructs as tc
     from aasist_tpu_torch.ops.frontend_head import (
         fused_frontend_head, fused_frontend_head_reference)
     from aasist_tpu_torch.ops.frontend_variants import (
@@ -168,10 +187,12 @@ def main() -> int:
     from aasist_tpu_torch.registry import build_model
     from aasist_tpu_torch.serving import Scorer
     from aasist_tpu_torch.tools import (
-        probe_fe_fix, probe_feb0_ablate, probe_frontend_variants)
+        probe_b0_ablate, probe_b0_constructs, probe_b0_epi, probe_fe_fix,
+        probe_feb0_ablate, probe_frontend_variants, probe_tail_constructs)
     from aasist_tpu_torch.tools._common import (
-        HEAD_Y1_OWN_X0_TOL, block0_bound, card_line, cuda_ms, frontend_bound,
-        head_bound, head_y1_excess)
+        B0_BF16_EPILOGUES, HEAD_Y1_OWN_X0_TOL, b0_fault, b0_readings,
+        block0_bound, bytes_bound, card_line, cuda_ms, frontend_bound,
+        head_bound, head_y1_excess, stage_bound)
     from aasist_tpu_torch.weights import load_npz
 
     # ---------------------------------------------------------------- 1
@@ -187,12 +208,22 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    libs = _build.load_all([(n, None) for n in (
-        "fused_frontend", "fused_block0", "frontend_dot", "frontend_head")])
-    print(f"[build] {len(libs)} sources in parallel: "
-          f"{time.perf_counter() - t0:.1f} s")
-    for lib in libs:
-        print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
+    construct_sets = probe_b0_constructs.SETS
+    variants = {}                      # the builds of fused_block0.cu
+    for d in ([bv.constructs_defines(*f) for f in construct_sets.values()]
+              + [bv.stage_defines(st) for st in bv.STAGES]
+              + [bv.epi_defines(v) for v in bv.EPI_VARIANTS]
+              + [bv.cut_defines(c) for c in bv.CUTS]):
+        variants[json.dumps(d, sort_keys=True)] = d
+    entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
+                                   "frontend_head", "tail_constructs")]
+    entries += [("fused_block0", d) for d in variants.values()]
+    libs = _build.load_all(entries)
+    print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
+          f"fused_block0.cu): {time.perf_counter() - t0:.1f} s")
+    for (_, defines), lib in zip(entries, libs):
+        print(f"[build] {lib.path.name} {defines or ''}: nvcc "
+              f"{lib.build_seconds:.1f} s")
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
@@ -477,6 +508,159 @@ def main() -> int:
         del x, block
         torch.cuda.empty_cache()
 
+    # the block-0 variants (bf16 only): every construct set, stage and
+    # cast-ladder variant against its plain version
+    families = {
+        "fused_block0_constructs": (
+            bv.fused_block0_constructs,
+            bv.fused_block0_constructs_reference, construct_sets),
+        "fused_block0_stage": (
+            bv.fused_block0_stage, bv.fused_block0_stage_reference,
+            {st: (st,) for st in bv.STAGES}),
+        "fused_block0_epi": (
+            bv.fused_block0_epi, bv.fused_block0_epi_reference,
+            {v: (v,) for v in bv.EPI_VARIANTS})}
+    variant_results = {name: {} for name in families}
+    for b, length in [(128, 64600), (3, 16001)]:
+        tag = f"bfloat16 B={b} L={length}"
+        x = (torch.randn((b, length), generator=gen, device="cuda")
+             * 0.1).bfloat16()
+        bank = model32.filterbank.detach().to("cuda", torch.bfloat16)
+        bn_p, bn_s = bn_dicts(torch.bfloat16)
+        block = copy.deepcopy(model32.encoder[0]).to("cuda", torch.bfloat16)
+        with torch.inference_mode():
+            z = fused_frontend_padded(x, bank, bn_p, bn_s)
+            shape = (b, 32, 23, (length - 128) // 9)
+            plain_base = bv.fused_block0_epi_reference(z, block, "base")
+            for fam, (fn, ref_fn, cases_) in families.items():
+                for vname, vargs in cases_.items():
+                    got = fn(z, block, *vargs)
+                    torch.cuda.synchronize()
+                    plain = ref_fn(z, block, *vargs)
+                    check(tuple(got.shape) == shape
+                          and got.dtype == torch.bfloat16
+                          and bool(torch.isfinite(got).all()),
+                          f"{fam} {vname}: output {tuple(got.shape)} "
+                          f"{got.dtype}, or not finite")
+                    err = (got.float() - plain.float()).abs().max().item()
+                    fault = b0_fault(vname, z, block)
+                    bad = fault and fn(*fault, *vargs)
+                    text, fails = b0_readings(
+                        vname, got, plain, bad,
+                        plain_base if vname in B0_BF16_EPILOGUES else None)
+                    print(f"[kernel] {fam} {vname} {tag}: max|kernel-plain| "
+                          f"= {err:.3e}, {text}")
+                    check(not fails, f"{fam}, {tag}: " + "; ".join(fails))
+                    del got, bad, fault
+                    if b == 128:
+                        ms = cuda_ms(lambda: fn(z, block, *vargs), 5)
+                        plain_ms = cuda_ms(lambda: ref_fn(z, block, *vargs),
+                                           1, warmup=0)
+                        bound, by = (
+                            stage_bound(vname, b, length, 32, "bfloat16")
+                            if fam == "fused_block0_stage"
+                            else block0_bound(b, length, 32, "bfloat16"))
+                        top = plain.float().abs().max().item()
+                        variant_results[fam][vname] = dict(
+                            max_abs_err=err, max_rel_err=err / top, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            library_ms=None)
+                        print(f"[kernel] {fam} {vname} {tag}: kernel "
+                              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                              f"{bound:.4f} ms ({by})  [{card}]")
+                    del plain
+            del plain_base
+        del x, z, block
+        torch.cuda.empty_cache()
+
+    # the tail kernels: the pools are exact, SELU + layout within an ulp
+    tail_results = {}
+    for dname, b, t in [("bfloat16", 64, 4608), ("float32", 64, 4608),
+                        ("bfloat16", 3, 5291), ("float32", 3, 5291),
+                        ("bfloat16", 128, 21489)]:
+        dtype = getattr(torch, dname)
+        tag = f"{dname} B={b} T={t}"
+        rand = lambda *sh: (torch.randn(sh, generator=gen, device="cuda")
+                            * 0.5).to(dtype)
+        timed = b != 3
+        n_in, n_out = b * 32 * 23 * 3 * (t // 3), b * 32 * 23 * (t // 3)
+        y = rand(b, 32, 23, t)
+        plain = tc.pool3_time_reference(y)
+        pool_cases = [(f"pool3_time {how}", how) for how in tc.POOL_HOW]
+        for label, how in pool_cases:
+            got = tc.pool3_time(y, how)
+            torch.cuda.synchronize()
+            check(got.shape == plain.shape and got.dtype == dtype,
+                  f"{label}: output {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - plain.float()).abs().max().item()
+            print(f"[kernel] {label} {tag}: max|kernel-plain| = {err:.1e} "
+                  f"(gate 0)")
+            check(err == 0, f"{label} is not exact, {tag}")
+            if timed:
+                ms = cuda_ms(lambda: tc.pool3_time(y, how), 10)
+                lib_ms = cuda_ms(lambda: F.max_pool2d(y, (1, 3)), 10)
+                bound, by = bytes_bound(n_in, n_out, dname)
+                tail_results[(label, dname, b)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=lib_ms, bound_ms=bound,
+                    bound_by=by, library_ms=lib_ms)
+                print(f"[kernel] {label} {tag}: kernel {ms:.4f} ms, plain (= "
+                      f"F.max_pool2d) {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({by})  [{card}]")
+        del y, plain, got
+        y = rand(b, 32, t, 23)
+        got = tc.pool3_time_major(y)
+        torch.cuda.synchronize()
+        plain = tc.pool3_time_major_reference(y)
+        check(got.shape == plain.shape and got.dtype == dtype,
+              f"pool3_time_major: output {tuple(got.shape)} {got.dtype}")
+        err = (got.float() - plain.float()).abs().max().item()
+        print(f"[kernel] pool3_time_major {tag}: max|kernel-plain| = "
+              f"{err:.1e} (gate 0)")
+        check(err == 0, f"pool3_time_major is not exact, {tag}")
+        if timed:
+            ms = cuda_ms(lambda: tc.pool3_time_major(y), 10)
+            plain_ms = cuda_ms(lambda: tc.pool3_time_major_reference(y), 5)
+            lib_ms = cuda_ms(lambda: F.max_pool2d(y, (3, 1)), 10)
+            bound, by = bytes_bound(n_in, n_out, dname)
+            tail_results[("pool3_time_major", dname, b)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+            print(f"[kernel] pool3_time_major {tag}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, F.max_pool2d (3,1) {lib_ms:.4f}"
+                  f" ms, bound {bound:.4f} ms ({by})  [{card}]")
+        del y, plain, got
+        zc = rand(32, 24, b, t)
+        plain = tc.selu_to_nchw_reference(zc)
+        tol = TOL_SELU_NCHW[dname]
+        hows = [None] + ([] if t % (16 // zc.element_size()) else ["staged"])
+        for how in hows:          # None: "vector" where T allows it
+            label = "selu_to_nchw" + (f" {how}" if how else "")
+            got = tc.selu_to_nchw(zc, how)
+            torch.cuda.synchronize()
+            check(tuple(got.shape) == (b, 32, 24, t) and got.dtype == dtype
+                  and got.is_contiguous(),
+                  f"{label}: output {tuple(got.shape)} {got.dtype}")
+            err = max_abs_diff(got, plain)
+            print(f"[kernel] {label} {tag}: max|kernel-plain| = {err:.3e} "
+                  f"(atol {tol['atol']}, rtol {tol['rtol']:.3e})")
+            check(all(torch.allclose(g.float(), r.float(), **tol)
+                      for g, r in zip(got.split(16), plain.split(16))),
+                  f"{label} disagrees with its plain version, {tag}")
+            del got
+            if timed:
+                ms = cuda_ms(lambda: tc.selu_to_nchw(zc, how), 10)
+                plain_ms = cuda_ms(lambda: tc.selu_to_nchw_reference(zc), 5)
+                bound, by = bytes_bound(zc.numel(), zc.numel(), dname)
+                tail_results[(label, dname, b)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None)
+                print(f"[kernel] {label} {tag}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})  "
+                      f"[{card}]")
+        del plain
+        del zc
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4
     scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
                                 weights_path=weights)
@@ -607,12 +791,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     probed = {"fused_frontend_dot_fm": fused_frontend_dot_fm,
               "fused_frontend_dot_bm": fused_frontend_dot_bm,
-              "fused_frontend_head": fused_frontend_head}
+              "fused_frontend_head": fused_frontend_head,
+              "fused_block0_constructs": bv.fused_block0_constructs,
+              "fused_block0_stage": bv.fused_block0_stage,
+              "fused_block0_cut": bv.fused_block0_cut,
+              "fused_block0_epi": bv.fused_block0_epi,
+              "pool3_time": tc.pool3_time,
+              "pool3_time_major": tc.pool3_time_major,
+              "selu_to_nchw": tc.selu_to_nchw}
     for fn in probed.values():
         fn.launches = 0
     for probe, argv in ((probe_frontend_variants, ["--iters", "3"]),
                         (probe_fe_fix, ["--iters", "3"]),
-                        (probe_feb0_ablate, ["--iters", "3"])):
+                        (probe_feb0_ablate, ["--iters", "3"]),
+                        (probe_b0_constructs, ["--iters", "3"]),
+                        (probe_b0_ablate, ["--iters", "3"]),
+                        (probe_b0_epi, ["--iters", "3"]),
+                        (probe_tail_constructs, ["--iters", "3"])):
         pname = probe.__name__.rsplit(".", 1)[-1]
         print(f"[probe] {pname} {' '.join(argv)}")
         rc = probe.main(argv)
@@ -661,6 +856,53 @@ def main() -> int:
         "launches": probe_launches["fused_frontend_head"],
         **head_results["bfloat16"], "dtype": "bfloat16",
         "shape": [128, 64600], "float32": head_results["float32"]})
+    # the block-0 variants: one entry per wrapper, its numbers those of the
+    # variant named in "variant", every variant's under "variants"
+    for fam, head, where in (
+            ("fused_block0_constructs", "all",
+             "tools/probe_b0_constructs.py:29"),
+            ("fused_block0_stage", "conv2", "tools/probe_b0_ablate.py:32"),
+            ("fused_block0_epi", "vA", "tools/probe_b0_epi.py:41")):
+        kernels.append({
+            "name": fam, "route": "cuda",
+            "source": "aasist_tpu_torch/csrc/fused_block0.cu",
+            "replaces": where, "launches": probe_launches[fam],
+            **variant_results[fam][head], "variant": head,
+            "dtype": "bfloat16", "shape": [128, 64600],
+            "variants": variant_results[fam]})
+    for name, label, where, shape, real in (
+            ("pool3_time", "pool3_time staged",
+             "tools/probe_tail_constructs.py:58",
+             [64, 32, 23, 4608], [128, 32, 23, 21489]),
+            ("pool3_time_major", "pool3_time_major",
+             "tools/probe_tail_constructs.py:68",
+             [64, 32, 4608, 23], [128, 32, 21489, 23]),
+            ("selu_to_nchw", "selu_to_nchw",
+             "tools/probe_tail_constructs.py:111",
+             [32, 24, 64, 4608], [32, 24, 128, 21489])):
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "aasist_tpu_torch/csrc/tail_constructs.cu",
+            "replaces": where, "launches": probe_launches[name],
+            **tail_results[(label, "bfloat16", 64)], "dtype": "bfloat16",
+            "shape": shape, "float32": tail_results[(label, "float32", 64)],
+            "block0_size": {"shape": real,
+                            **tail_results[(label, "bfloat16", 128)]}}
+        if name == "selu_to_nchw":
+            entry["variant"] = "vector (staged at block 0's size)"
+            entry["staged"] = {
+                d: tail_results[("selu_to_nchw staged", d, 64)]
+                for d in ("bfloat16", "float32")}
+        if name == "pool3_time":
+            entry["variant"] = "staged"
+            entry["direct"] = {
+                "bfloat16": tail_results[("pool3_time direct", "bfloat16",
+                                          64)],
+                "float32": tail_results[("pool3_time direct", "float32",
+                                         64)],
+                "block0_size": tail_results[("pool3_time direct",
+                                             "bfloat16", 128)]}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
