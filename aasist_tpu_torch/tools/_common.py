@@ -90,6 +90,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, reps: int, iters: int) -> float:
+    """Device time of one ``fn()`` for a call shorter than the host's time to
+    launch it: ``reps`` calls captured in a CUDA graph, the graph replayed
+    (``cuda_ms``), over ``reps``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters) / reps
+
+
 def _bound(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -186,6 +205,190 @@ def bytes_bound(n_in: int, n_out: int, dtype: str) -> Tuple[float, str]:
     of ``ops.tail_constructs`` (``n_in`` the 3 V times a row's V outputs
     read) and ``selu_to_nchw``."""
     return _esize(dtype) * (n_in + n_out) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+# Rows of x read and of the output written, per (channel, batch row, time),
+# by each step-cost mode (``ops.stepcost``).  matmul's output rows 0 .. 22
+# take d's low half at rows 0 .. 22 and its high half at rows 1 .. 23, so
+# its dots read x rows 0 .. 25; matblk's one more row reads 0 .. 26.
+STEPCOST_ROWS = {"nop": (0, 23), "nopF32": (0, 32), "nopblk": (0, 32),
+                 "copy": (23, 23), "matmul": (26, 23), "matblk": (27, 32)}
+STEPCOST_DOT_ROWS = {"matmul": 23, "matblk": 24}
+
+
+def stepcost_flops(mode: str, b: int, t: int) -> float:
+    """The FLOPs ``mode``'s function needs on x (32, b, 32, t): for each
+    output row and position, both halves' 96-term dots (2 x 96 x 32 each);
+    none for the other modes.  (The JAX probe counts all 64 outputs at 25
+    rows of d, 9 % more than matmul needs.)"""
+    return 2.0 * 96 * 64 * b * t * STEPCOST_DOT_ROWS.get(mode, 0)
+
+
+def stepcost_bound(mode: str, b: int, t: int) -> Tuple[float, str]:
+    """(least ms, what bounds it) for one ``stepcost`` call on x (32, b, 32,
+    t), bf16: the mode's rows read and written once over the memory rate
+    (``STEPCOST_ROWS``; w too for the dots), or ``stepcost_flops`` over the
+    bf16 peak, whichever is larger.  At b = 128, t = 7168: nop 0.403 ms,
+    nopF32 and nopblk 0.561, copy 0.806, matmul 0.859 (its FLOPs 0.262),
+    matblk 1.034 (0.274), all bytes."""
+    rows_in, rows_out = STEPCOST_ROWS[mode]
+    nbytes = 2.0 * 32 * b * t * (rows_in + rows_out)
+    if mode in STEPCOST_DOT_ROWS:
+        nbytes += 2 * 96 * 64
+    return _bound(stepcost_flops(mode, b, t), nbytes, "bfloat16")
+
+
+def mma_chain_bound(k: int, m: int, n_cols: int) -> Tuple[float, str]:
+    """(least ms, "operations") for one dot of ``mma_chain``: 2 K M N useful
+    FLOP over the bf16 peak.  The operands stay on chip between dots, so a
+    dot moves no device memory."""
+    return 2.0 * k * m * n_cols / PEAK_FLOPS["bfloat16"] * 1e3, "operations"
+
+
+# Gates of the step-cost kernels against ``ops.stepcost.stepcost_reference``
+# as (atol, rtol) of |kernel - plain| <= atol + rtol |plain|, element by
+# element, with ``out`` filled with NaN before the launch so that an element
+# the kernel does not write fails.  The nop modes and copy store 1.0 or
+# stored values: exact.  matmul and matblk sum the same 96 exact bf16
+# products in f32 in another order, add the halves and round once: one bf16
+# ulp (rtol 2^-7) apart; near zero the f32 order error shows, ~2^-24 of the
+# ~150 that |terms| sum to at N(0, 1) inputs, so atol 1e-4 is ten times it.
+# A planted fault (copy: one row of x zeroed; matmul, matblk: one K row of w
+# zeroed; the nop modes: one element of the output left as NaN) must put
+# elements over the gate.  Readings at B = 128, T = 7168: no element over,
+# the dots at most 0.25 apart (one ulp of |out| ~ 16-32); the faults put 1
+# (nop modes), 2.9e7 (copy) and 6.2e8 of 6.8e8 (matmul) elements over.
+# (NVIDIA H100 80GB HBM3, 700.00 W; the probe prints them.)
+STEPCOST_EXACT = ("nop", "nopF32", "nopblk", "copy")
+STEPCOST_DOTS_TOL = (1e-4, 2.0 ** -7)
+
+
+def stepcost_gate(mode: str) -> Tuple[float, float]:
+    """(atol, rtol) of step-cost mode ``mode``."""
+    return (0.0, 0.0) if mode in STEPCOST_EXACT else STEPCOST_DOTS_TOL
+
+
+def _over(got, plain, atol: float, rtol: float) -> Tuple[int, float]:
+    """(elements with |got - plain| > atol + rtol |plain| or not finite,
+    max |got - plain|), in float32, 2^26 elements at a time."""
+    n, worst = 0, 0.0
+    for g, p in zip(got.reshape(-1).split(1 << 26),
+                    plain.reshape(-1).split(1 << 26)):
+        d = (g.float() - p.float()).abs()
+        n += int((~(d <= atol + rtol * p.float().abs())).sum().item())
+        worst = max(worst, d.nan_to_num(float("inf")).max().item())
+    return n, worst
+
+
+def max_abs_err(got, plain) -> float:
+    """max |got - plain| in float32 over tensors of one number of elements
+    (inf where either is not finite)."""
+    return _over(got, plain, 0.0, 0.0)[1]
+
+
+def stepcost_readings(mode: str, got, plain, bad=None):
+    """(text, failures) for step-cost output ``got`` of ``mode`` against its
+    plain version (``stepcost_gate``); ``bad`` is the output under the
+    planted fault, which must fail the gate."""
+    atol, rtol = stepcost_gate(mode)
+    n, worst = _over(got, plain, atol, rtol)
+    text = (f"elements over (atol {atol}, rtol {rtol:.3e}): {n} of "
+            f"{plain.numel()}, max|kernel - plain| {worst:.3e}")
+    fails = [f"{mode}: {n} elements disagree with its plain version"] if n \
+        else []
+    if bad is not None:
+        n_bad, worst_bad = _over(bad, plain, atol, rtol)
+        text += f"; planted fault: {n_bad} over, max {worst_bad:.3e}"
+        if not n_bad:
+            fails.append(f"{mode}: the gate does not tell the planted fault")
+    return text, fails
+
+
+def stepcost_bad(mode: str, x, w, run):
+    """The output of ``run(x, w)`` (a step-cost call) under ``mode``'s
+    planted fault (``stepcost_gate``)."""
+    if mode in STEPCOST_EXACT and mode != "copy":
+        bad = run(x, w).clone()
+        bad.view(-1)[bad.numel() // 2] = float("nan")
+        return bad
+    x, w = x.clone(), w.clone()
+    if mode == "copy":
+        x[:, :, 5] = 0
+    else:
+        w[w.shape[0] // 2] = 0
+    return run(x, w)
+
+
+# Gates of ``mma_chain`` against ``mma_chain_reference`` at a visible eps,
+# MMA_EPS_SCALE / (K M) on N(0, 1) w and a (an update of ~4 a dot, against
+# |a| ~ 1), over MMA_CHECK_ITERS dots.  Rows 1.. are copied: exact.  Row 0:
+# the kernel sums y^2 in another order, so bf16(eps s) or the add may round
+# the other way, an ulp of a[0] (2^-8 to 2^-7 of max|row 0|) that the next
+# dots carry on: gate 2^-6 of max|row 0| on the largest error.  An ulp hides
+# small faults, so row 0 is also gated on mean|kernel - plain| / mean|plain|
+# at MMA_GATE_MEAN, where rare flips vanish and a fault in every column does
+# not: one K row of w zeroed moves s by ~2 / sqrt(K M) in each column, which
+# must read MMA_FAULT_FACTOR times the mean gate.  Readings on the twelve
+# shapes: sound 0 (eleven) and 2.8e-3 / 2.3e-6 (k256_m256, one flip), the
+# fault 7.0e-3 (k384_m96) to 0.20 (k12_m192) in the mean; the mean gate,
+# 1e-4, is forty times the one flip and a seventieth of the least fault.
+# (NVIDIA H100 80GB HBM3, 700.00 W; the probe prints them.)
+MMA_EPS_SCALE = 4.0
+MMA_CHECK_ITERS = 3
+MMA_GATE_MAX = 2.0 ** -6
+MMA_GATE_MEAN = 1e-4
+MMA_FAULT_FACTOR = 5
+
+
+def mma_eps(k: int, m: int) -> float:
+    """The visible eps of the (K, M) check."""
+    return MMA_EPS_SCALE / (k * m)
+
+
+def mma_gate() -> Tuple[float, float]:
+    """(gate on the largest, gate on the mean) row-0 error of
+    ``mma_chain``."""
+    return MMA_GATE_MAX, MMA_GATE_MEAN
+
+
+def mma_bad(w, a, run):
+    """The output of ``run(w, a)`` (an ``mma_chain`` call) with the planted
+    fault: w's middle K row zeroed."""
+    w = w.clone()
+    w[w.shape[0] // 2] = 0
+    return run(w, a)
+
+
+def mma_readings(name: str, got, plain, a, bad=None):
+    """(text, failures) for ``mma_chain``'s output ``got`` from input ``a``
+    against its plain version at the visible eps (``mma_eps``, gates
+    ``mma_gate``); ``bad`` is the output under ``mma_bad``."""
+    gate_max, gate_mean = mma_gate()
+    fails = []
+    rows_exact = bool((got[1:] == a[1:]).all())
+    if not rows_exact:
+        fails.append(f"{name}: rows 1.. differ from the input")
+    changed = (plain[0] != a[0]).float().mean().item()
+    if changed < 0.5:
+        fails.append(f"{name}: the update moved {changed:.1%} of row 0: eps "
+                     "is not visible")
+    rel, mean = rel_err(got[0], plain[0]), mean_err(got[:1], plain[:1])
+    text = (f"row 0 error / max|plain| {rel:.3e} (gate {gate_max:.3e}), "
+            f"mean error / mean|plain| {mean:.3e} (gate {gate_mean}); "
+            f"rows 1.. {'exact' if rows_exact else 'DIFFER'}; "
+            f"{changed:.1%} of row 0 moved by the update")
+    if not rel <= gate_max:
+        fails.append(f"{name}: row 0 disagrees with its plain version")
+    if not mean <= gate_mean:
+        fails.append(f"{name}: row 0 disagrees with its plain version in "
+                     "the mean")
+    if bad is not None:
+        told = mean_err(bad[:1], plain[:1])
+        text += f"; planted fault: {told:.3e}"
+        if not told >= MMA_FAULT_FACTOR * gate_mean:
+            fails.append(f"{name}: a planted fault reads under "
+                         f"{MMA_FAULT_FACTOR * gate_mean}")
+    return text, fails
 
 
 def kernel_resources(log: str, kernel: str) -> str:

@@ -5,7 +5,7 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the five CUDA sources from csrc/ and the seventeen variants of
+  2. build the seven CUDA sources from csrc/ and the seventeen variants of
      fused_block0.cu with nvcc, all at once;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
@@ -16,7 +16,10 @@ Phases, each of which raises (exit code 1) on failure:
      block-0 head; kernel, plain and cuDNN-chain times beside each
      kernel's bound; then every variant of the block-0 kernel (construct
      sets, stages, cast ladder; bfloat16) and the tail kernels (three pools,
-     SELU + layout change; both types, one size with ragged tiles);
+     SELU + layout change; both types, one size with ragged tiles); then
+     the step-cost kernel in its six modes at B = 128, T = 7168 and at a
+     ragged geometry, and the chained-dot kernel at the twelve dot shapes
+     at a visible eps, each with a planted fault its gate must tell;
   4. the main paths, each with its launch counts reset just before and read
      just after: Scorer.from_config("configs/AASIST.conf") with the
      pretrained weights (fused frontend) serves 5 requests of 1-6 s, then
@@ -30,11 +33,12 @@ Phases, each of which raises (exit code 1) on failure:
      of one such batch by CUDA kernel with the frontend kernel and with the
      stack (printed, not gated; the whole tables go to
      chiprun_out/profile_bf16_b128.txt and profile_bf16_b128_stack.txt);
-  6. the seven probes through their entry points
+  6. the nine probes through their entry points
      (aasist_tpu_torch.tools.probe_frontend_variants, probe_fe_fix,
      probe_feb0_ablate, probe_b0_constructs, probe_b0_ablate, probe_b0_epi,
-     probe_tail_constructs), with their kernels' launch counts reset just
-     before and read just after;
+     probe_tail_constructs, probe_stepcost, probe_mxu_shapes), each with
+     the kernels' launch counts reset just before it and read just after;
+     a probe that did not launch each of its kernels fails;
   7. one JSON line describing every ported kernel, the card's line, and
      last the device JSON line.
 """
@@ -173,6 +177,8 @@ def main() -> int:
     from aasist_tpu_torch.data.dataset import pad_to_fixed
     from aasist_tpu_torch.ops import _build
     from aasist_tpu_torch.ops import block0_variants as bv
+    from aasist_tpu_torch.ops import mma_shapes as mm
+    from aasist_tpu_torch.ops import stepcost as sc
     from aasist_tpu_torch.ops import tail_constructs as tc
     from aasist_tpu_torch.ops.frontend_head import (
         fused_frontend_head, fused_frontend_head_reference)
@@ -188,11 +194,13 @@ def main() -> int:
     from aasist_tpu_torch.serving import Scorer
     from aasist_tpu_torch.tools import (
         probe_b0_ablate, probe_b0_constructs, probe_b0_epi, probe_fe_fix,
-        probe_feb0_ablate, probe_frontend_variants, probe_tail_constructs)
+        probe_feb0_ablate, probe_frontend_variants, probe_mxu_shapes,
+        probe_stepcost, probe_tail_constructs)
     from aasist_tpu_torch.tools._common import (
         B0_BF16_EPILOGUES, HEAD_Y1_OWN_X0_TOL, b0_fault, b0_readings,
         block0_bound, bytes_bound, card_line, cuda_ms, frontend_bound,
-        head_bound, head_y1_excess, stage_bound)
+        head_bound, head_y1_excess, max_abs_err, stage_bound,
+        stepcost_bound)
     from aasist_tpu_torch.weights import load_npz
 
     # ---------------------------------------------------------------- 1
@@ -216,7 +224,8 @@ def main() -> int:
               + [bv.cut_defines(c) for c in bv.CUTS]):
         variants[json.dumps(d, sort_keys=True)] = d
     entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
-                                   "frontend_head", "tail_constructs")]
+                                   "frontend_head", "tail_constructs",
+                                   "stepcost", "mma_shapes")]
     entries += [("fused_block0", d) for d in variants.values()]
     libs = _build.load_all(entries)
     print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
@@ -661,6 +670,67 @@ def main() -> int:
         del zc
         torch.cuda.empty_cache()
 
+    # the step-cost kernel: every mode at block 0's grid geometry and at a
+    # ragged one (g = 3, u = 104: a full 64-time sub-tile, then a 40-time
+    # tail in which warps 5-7 hold no times), the output filled with NaN
+    # first; gates and planted faults in tools/_common.py:stepcost_readings
+    step_results = {}
+    for b, t, g, u in [(probe_stepcost.BATCH, probe_stepcost.T_TOTAL, 8, 256),
+                       (6, 312, 3, 104)]:
+        tag = f"B={b} T={t} (g, u) = ({g}, {u})"
+        x, w = probe_stepcost.inputs(b, t, seed=1)
+        full = b == probe_stepcost.BATCH
+        lib_fns = probe_stepcost.library_calls(x, w) if full else {}
+        with torch.inference_mode():
+            for mode in sc.MODES:
+                plain = sc.stepcost_reference(mode, x, w, g, u)
+                text, fails, err = probe_stepcost.check(mode, x, w, g, u,
+                                                        True, plain)
+                print(f"[kernel] stepcost {mode} {tag}: {text}")
+                check(not fails, f"stepcost, {tag}: " + "; ".join(fails))
+                if not full:
+                    continue
+                ms = cuda_ms(lambda: sc.stepcost(mode, x, w, g, u), 10)
+                plain_ms = cuda_ms(
+                    lambda: sc.stepcost_reference(mode, x, w, g, u), 3)
+                lib_ms = cuda_ms(lib_fns[mode], 10)
+                bound, by = stepcost_bound(mode, b, t)
+                step_results[mode] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                    g=g, u=u)
+                print(f"[kernel] stepcost {mode} {tag}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, stock call {lib_ms:.4f} ms, "
+                      f"bound {bound:.4f} ms ({by})  [{card}]")
+                if mode == "matmul":
+                    conv = lib_fns[mode]().permute(1, 0, 2, 3)
+                    rel = (max_abs_err(conv, plain)
+                           / plain.abs().max().item())
+                    print(f"[kernel] stepcost matmul {tag}: the stock conv "
+                          f"against the plain version, max|d| / max|plain| "
+                          f"= {rel:.3e} (not gated: its summed taps are "
+                          "rounded)")
+                    del conv
+                del plain
+        del x, w, lib_fns
+        torch.cuda.empty_cache()
+
+    # the chained-dot kernel at every dot shape: checked at a visible eps
+    # (tools/_common.py:mma_readings), timed a dot at the probe's eps
+    mma_results = {}
+    with torch.inference_mode():
+        for name in mm.SHAPES:
+            text, fails, err = probe_mxu_shapes.check(name)
+            print(f"[kernel] mma_chain {name}: {text}")
+            check(not fails, "mma_chain: " + "; ".join(fails))
+            r = probe_mxu_shapes.measure(name, probe_mxu_shapes.N_DOTS, 5)
+            mma_results[name] = dict(max_abs_err=err, **r)
+            print(f"[kernel] mma_chain {name}: {1e3 * r['ms']:.3f} us a dot "
+                  f"({r['tflops']:.1f} TF/s useful, {r['tflops_padded']:.1f}"
+                  f" padded), plain {1e3 * r['plain_ms']:.3f} us, torch.mm "
+                  f"{1e3 * r['library_ms']:.3f} us, bound "
+                  f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']})  [{card}]")
+
     # ---------------------------------------------------------------- 4
     scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
                                 weights_path=weights)
@@ -798,24 +868,39 @@ def main() -> int:
               "fused_block0_epi": bv.fused_block0_epi,
               "pool3_time": tc.pool3_time,
               "pool3_time_major": tc.pool3_time_major,
-              "selu_to_nchw": tc.selu_to_nchw}
-    for fn in probed.values():
-        fn.launches = 0
-    for probe, argv in ((probe_frontend_variants, ["--iters", "3"]),
-                        (probe_fe_fix, ["--iters", "3"]),
-                        (probe_feb0_ablate, ["--iters", "3"]),
-                        (probe_b0_constructs, ["--iters", "3"]),
-                        (probe_b0_ablate, ["--iters", "3"]),
-                        (probe_b0_epi, ["--iters", "3"]),
-                        (probe_tail_constructs, ["--iters", "3"])):
+              "selu_to_nchw": tc.selu_to_nchw,
+              "stepcost": sc.stepcost,
+              "mma_chain": mm.mma_chain}
+    # each probe with the kernels it must launch; every count is set to 0
+    # just before a probe and read just after it, and a kernel's launches
+    # are the sum over the probes that run it
+    dots = ("fused_frontend_dot_fm", "fused_frontend_dot_bm")
+    probe_launches = dict.fromkeys(probed, 0)
+    for probe, own in ((probe_frontend_variants, dots), (probe_fe_fix, dots),
+                       (probe_feb0_ablate, ("fused_frontend_head",)),
+                       (probe_b0_constructs, ("fused_block0_constructs",)),
+                       (probe_b0_ablate, ("fused_block0_stage",
+                                          "fused_block0_cut")),
+                       (probe_b0_epi, ("fused_block0_epi",)),
+                       (probe_tail_constructs, ("pool3_time",
+                                                "pool3_time_major",
+                                                "selu_to_nchw")),
+                       (probe_stepcost, ("stepcost",)),
+                       (probe_mxu_shapes, ("mma_chain",))):
         pname = probe.__name__.rsplit(".", 1)[-1]
-        print(f"[probe] {pname} {' '.join(argv)}")
-        rc = probe.main(argv)
+        print(f"[probe] {pname} --iters 3")
+        for fn in probed.values():
+            fn.launches = 0
+        rc = probe.main(["--iters", "3"])
+        counts = {name: fn.launches for name, fn in probed.items()}
         check(rc == 0, f"{pname} returned {rc}")
-    probe_launches = {name: fn.launches for name, fn in probed.items()}
+        print(f"[probe] {pname} launches "
+              f"{ {name: n for name, n in counts.items() if n} }")
+        for name in own:
+            check(counts[name] > 0, f"{name} was not launched by {pname}")
+        for name, n in counts.items():
+            probe_launches[name] += n
     print(f"[probe] launches {probe_launches}")
-    for name, n in probe_launches.items():
-        check(n > 0, f"{name} was not launched by its probe")
 
     # ---------------------------------------------------------------- 7
     r16, r32 = results["bfloat16"], results["float32"]
@@ -903,6 +988,18 @@ def main() -> int:
                 "block0_size": tail_results[("pool3_time direct",
                                              "bfloat16", 128)]}
         kernels.append(entry)
+    # the probes' kernels: one entry each, the numbers of the variant named
+    # in "variant" (mma_chain's a dot), every variant's under "variants"
+    for name, head, src, where, variants in (
+            ("stepcost", "matmul", "stepcost", "tools/probe_stepcost.py:53",
+             step_results),
+            ("mma_chain", "k128_m128", "mma_shapes",
+             "tools/probe_mxu_shapes.py:50", mma_results)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"aasist_tpu_torch/csrc/{src}.cu", "replaces": where,
+            "launches": probe_launches[name], **variants[head],
+            "variant": head, "dtype": "bfloat16", "variants": variants})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

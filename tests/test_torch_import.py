@@ -35,6 +35,16 @@ def test_import_pulls_in_no_jax():
     assert len(mods) >= 14
 
 
+def test_scan_reaches_every_module():
+    """Every .py file of the package is a module that the scans here import
+    and read, so a new source is held to them the day it lands."""
+    names = set()
+    for path in PKG.rglob("*.py"):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        names.add(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    assert names == {"aasist_tpu_torch", *_submodules()}
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
