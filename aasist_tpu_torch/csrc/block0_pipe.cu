@@ -1,0 +1,605 @@
+// Residual block 0 of AASIST for Hopper (sm_90a), eval mode, bf16, with its
+// phases overlapped:
+//
+//   y1  = selu(bn2(conv1(z)))      conv1 1 -> C, (2,3), pad (1,1)
+//   y2  = conv2(y1)                C -> C, (2,3), pad (0,1)
+//   ds  = downsample(z)            1 -> C, (1,3), pad (0,1)
+//   out = max_pool (1,3) of (y2 + ds), floor semantics
+//
+// z is the zero-bordered bf16 frame (B, F + 2, T_z + 2) that the padded
+// frontend writes (frame[b, f + 1, t + 1] = z[b, f, t]); out is
+// (B, C, F, T_z / 3) bf16 stored channels last, (B, F, T_z / 3, C) in
+// memory (PyTorch's channels_last).  The function is csrc/fused_block0.cu's bf16
+// kernel's, to the bit: conv1 in f32 FMAs over f32 taps with bn2 and conv1's
+// bias folded in, SELU in f32, y1 zero at the time halos and rounded once to
+// bf16; conv2 on the tensor cores (bf16 operands, f32 sums, taps in the same
+// order), the downsample in f32, both summed in f32, pooled, conv2's and the
+// downsample's biases added after the max, one rounding at the store.
+//
+// Replaces the TPU kernel tools/fused_stack.py:_b0_kernel (launched by
+// _b0_run), as csrc/fused_block0.cu does; that kernel stays, with its probe
+// builds, as the version this one is measured against.
+//
+// What bounds it on the H100.  At B = 128, L = 64,600 (F = 23, T_z =
+// 21,490) the block is ~8.1e11 FLOP, 95 % of it conv2, against ~1.5 GB of
+// bf16 in and out: 0.82 ms on the tensor cores' 989 TFLOP/s, 0.44 ms for
+// the bytes.  What the older kernel loses (PERF.md §5-§6, NVIDIA H100 80GB
+// HBM3, 700.00 W): it runs an item's phases one after another between
+// whole-CTA barriers (frame load, conv1 + SELU, conv2, store), with no load
+// in flight under the work, so that its load-and-store skeleton alone takes
+// 5.2x its bound; its bands of 4 output rows recompute 25 % of conv1 + SELU
+// as halo and leave a quarter of the warps idle in the sixth band.
+//
+// What the design does about it.
+// - Warp specialisation.  Eight producer warps build y1 tiles (conv1 + SELU
+//   on the CUDA cores) and eight consumer warps run conv2 on mma.sync, the
+//   downsample, the pool and the store, on two y1 buffers: producers fill
+//   item k + 1's while consumers read item k's.  The hand-off is by named
+//   barriers (FULL / EMPTY per buffer, bar.arrive on one side, bar.sync on
+//   the other), never by a whole-CTA barrier.
+// - Asynchronous frame loads.  A ring of four bf16 frame tiles: the
+//   producers issue item k + 2's tile with cp.async while they compute
+//   item k, and the consumers read item k's tile for the downsample after
+//   the producers have moved on.  A frame row is 8-byte aligned or not
+//   according to T_z, so each row's copy starts at the 8-byte boundary at
+//   or before its first column and the readers add that row's offset (0..3
+//   elements); chunks across the frame's edges are zero-filled or read
+//   element by element.
+// - Tall bands.  A work item is one batch row, all F = 23 output rows (24
+//   y1 rows, so 4 % recomputed halo instead of 25 %) and TO = 16 pooled
+//   columns (50 y1 columns for 48 positions).  The consumers take output
+//   rows w, w + 8, w + 16: 23 of 24 row slots busy.
+// - Whole-sector stores.  The older kernel's NCHW store writes 16-byte
+//   pieces of misaligned rows (T_z / 3 is odd), and its load-and-store
+//   skeleton is slow for it; with 16 pooled columns an item (needed for
+//   the tall bands) a draft of this kernel with that store had a skeleton
+//   several times slower than the one below.
+//   Channels last, a lane holds 8 neighbouring channels of one pooled
+//   column (the taps' output channels are permuted into the GEMM's N order
+//   for that) and stores them as 16 bytes; a warp stores 512 contiguous
+//   bytes.  cuDNN's convolutions of the next blocks take that layout as it
+//   is and keep it.
+// - conv2 as csrc/fused_block0.cu computes it: an implicit GEMM on
+//   mma.sync m16n8k16 (M = 48 positions of one output row, N = 32 output
+//   channels, K = 32 input channels x 6 taps), A fetched with ldmatrix from
+//   y1 stored [row][time][channel] (pitch 40, conflict-free), B (the taps)
+//   from shared memory laid out once per CTA, the accumulator rows assigned
+//   so that each lane holds whole pool windows.  Whether wgmma should take
+//   its place is the phase timer's question (PERF.md).
+//
+// Compile-time variants (preprocessor definitions, each its own library):
+//
+//   B0P_TIMER   thread 0 of each role adds clock64() deltas per phase into
+//               registers and writes them per CTA, with the CTA's first and
+//               last clock64 and %globaltimer, into the side buffer that
+//               aasist_block0_pipe_timer reads (ops/block0_pipe.py:
+//               phase_ms turns it into ms per phase).
+//   B0P_CUT=bits  timing only, the output is meaningless: 1 the producers
+//               compute no y1, 2 the consumers run no MMA loop.  3 leaves
+//               the skeleton: frame loads, hand-offs, downsample, store.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "b0_timer.cuh"
+
+#ifndef B0P_CUT
+#define B0P_CUT 0
+#endif
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int CUT = B0P_CUT;
+static_assert(CUT >= 0 && CUT < 4, "unknown cut");
+
+constexpr int C = 32;             // block-0 channels (filts[1][1])
+constexpr int TO = 16;            // pooled columns per item
+constexpr int TP = 3 * TO;        // conv2 positions per item
+constexpr int YW = TP + 2;        // y1 columns per item (time halo 1 + 1)
+constexpr int ZW = TP + 4;        // frame columns per item
+constexpr int RB = 23;            // output rows per band
+constexpr int YR = RB + 1;        // y1 rows per band
+constexpr int ZR = RB + 2;        // frame rows per band
+constexpr int CIS = 40;           // bf16 pitch of a y1 column / a tap's co row
+constexpr int ZP = 56;            // bf16 pitch of a frame-tile row: ZW + 3
+                                  // alignment slack, in 8-byte chunks
+constexpr int NCH = ZP / 4;       // 8-byte chunks per frame-tile row
+constexpr int NSTAGE = 4;         // frame tiles in the ring
+constexpr int RUN = 25;           // y1 columns per conv1 run
+constexpr int RUNS = YW / RUN;    // runs per y1 row
+constexpr int PWARPS = 8, CWARPS = 8;  // 4 + 12 and 6 + 10 time the same
+constexpr int PTHREADS = 32 * PWARPS;
+constexpr int THREADS = 32 * (PWARPS + CWARPS);
+constexpr int MT = 3;             // m16 tiles: the 48 positions of a row
+constexpr int U = 2;              // pool windows a lane holds
+static_assert(YW % RUN == 0 && ZP >= ZW + 3 && ZP % 4 == 0, "tiling");
+static_assert(16 * MT == TP && 2 * MT == 3 * U, "a row's pool windows");
+
+constexpr int W2_SZ = 6 * C * CIS;          // bf16 [tap][co][ci]
+constexpr int Y1_SZ = YR * YW * CIS;        // bf16 [row][col][ci], per buffer
+constexpr int ZT_SZ = ZR * ZP;              // bf16 frame tile, per stage
+constexpr size_t SMEM = (W2_SZ + 2 * Y1_SZ + NSTAGE * ZT_SZ) * 2 +
+                        NSTAGE * ZR * sizeof(int) + (C * 3 + C) * 4;
+static_assert((W2_SZ + 2 * Y1_SZ + NSTAGE * ZT_SZ) * 2 % 16 == 0, "align");
+
+// Named barriers: 0 is __syncthreads.
+constexpr int BAR_PRODUCERS = 1;            // the producers among themselves
+constexpr int BAR_FULL = 2;                 // + buffer: y1 written
+constexpr int BAR_EMPTY = 4;                // + buffer: y1 and frame read
+
+// Timer slots (b0_timer.cuh): 0 / 1 first and last clock64, 2 / 3 first
+// and last %globaltimer (ns), 4 items, then clocks summed over items:
+// producers 5 waiting for an
+// empty buffer, 6 issuing the next frame tile, 7 waiting for this one, 8
+// conv1 + SELU; consumers 9 waiting for a full buffer, 10 conv2's MMA
+// loop, 11 the downsample, pool and store.
+
+constexpr float SELU_SCALE = 1.0507009873554805f;
+constexpr float SELU_ALPHA = 1.6732632423543772f;
+
+// SELU for values rounded to bf16 next, with no branch: both sides are
+// computed and the side picked with bit operations.  A conditional SELU
+// compiles to a branch around the exponential at every y1 value, which
+// serialises the unrolled run (a draft of this kernel spent most of its
+// time there).  The values are csrc/fused_block0.cu's
+// selu_fast, bit for bit: __expf there is ex2.approx of the same product
+// with a fix-up for results below 2^-126, which ex2.approx.ftz flushes to
+// 0 instead; either way e - 1 rounds to -1.  For z > 0 the exponential may
+// be inf, and that side is not picked.
+__device__ __forceinline__ float selu_nb(float z) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(z * 1.4426950216293334961f));
+  const float pos = SELU_SCALE * z;
+  const float neg = (SELU_SCALE * SELU_ALPHA) * (e - 1.f);
+  const unsigned m = z > 0.f ? 0xffffffffu : 0u;
+  return __uint_as_float((__float_as_uint(pos) & m) |
+                         (__float_as_uint(neg) & ~m));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 8 bytes global -> shared, asynchronously; both addresses 8-byte aligned
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Work item w (ops/block0_pipe.py:pipe_items states the same): pooled
+// columns [t0, t0 + TO) of tile w % n_tiles, output rows [f0, f0 + rows)
+// of band (w / n_tiles) % n_bands, batch row w / (n_tiles n_bands).
+struct Item {
+  long long b;
+  int f0, rows, t0;
+};
+
+__device__ __forceinline__ Item item(int work, int n_tiles, int n_bands,
+                                     int F) {
+  const int rest = work / n_tiles;
+  const int f0 = (rest % n_bands) * RB;
+  return {rest / n_bands, f0, min(RB, F - f0), (work % n_tiles) * TO};
+}
+
+// Frame tile of item `it` into stage `zt` (rows f0 .. f0 + rows + 1 of the
+// frame, columns 3 t0 - 1 .. 3 t0 + YW): row r's copy starts at the 8-byte
+// boundary at or before column 3 t0 - 1, that many elements earlier is
+// off[r]; zeros outside the frame.  Producer threads only.
+__device__ __forceinline__ void load_frame(bf16* zt, int* off,
+                                           const bf16* __restrict__ z,
+                                           const Item& it, int F, int T_z,
+                                           int ptid) {
+  const int zcols = T_z + 2, c0 = 3 * it.t0 - 1;
+  const bf16* zb = z + (it.b * (F + 2) + it.f0) * (long long)zcols;
+  const uint32_t base = smem_u32(zt);
+  for (int i = ptid; i < (it.rows + 2) * NCH; i += PTHREADS) {
+    const int r = i / NCH, q = i % NCH;
+    const bf16* row = zb + (long long)r * zcols;
+    // element index of the row's first 8-byte boundary at or before c0
+    const int mis = (int)(((reinterpret_cast<uintptr_t>(row) >> 1) +
+                           (uintptr_t)(c0 + 4)) & 3);
+    const int e0 = c0 - mis + 4 * q;           // first element of chunk q
+    if (q == 0) off[r] = mis;
+    const uint32_t dst = base + (r * ZP + 4 * q) * 2;
+    if (e0 >= 0 && e0 + 4 <= zcols) {
+      cp_async8(dst, row + e0);
+    } else if (e0 + 4 <= 0 || e0 >= zcols) {
+      *reinterpret_cast<uint2*>(zt + r * ZP + 4 * q) = make_uint2(0u, 0u);
+    } else {
+      bf16* d = zt + r * ZP + 4 * q;
+      for (int j = 0; j < 4; ++j)
+        d[j] = (e0 + j >= 0 && e0 + j < zcols) ? row[e0 + j]
+                                               : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ float bf(const bf16 v) {
+  return __bfloat162float(v);
+}
+
+// RUN y1 columns of a thread's two channels: conv1 (taps wa / wb, shifts
+// sa / sb, z0 / z1 the frame's two rows from the run's first column), SELU,
+// rounded, stored at dst + j CIS.  MASK: zero at times outside 0 .. T_z - 1
+// (t0: the time of the first column); a run wholly inside needs no mask.
+template <bool MASK>
+__device__ __forceinline__ void conv1_run(const float* z0, const float* z1,
+                                          const float* wa, const float* wb,
+                                          float sa, float sb, bf16* dst,
+                                          int t0, int T_z) {
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    float a = sa, b = sb;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      a = fmaf(wa[q], z0[j + q], fmaf(wa[3 + q], z1[j + q], a));
+      b = fmaf(wb[q], z0[j + q], fmaf(wb[3 + q], z1[j + q], b));
+    }
+    float ya = selu_nb(a), yb = selu_nb(b);
+    if constexpr (MASK) {                // +0 outside the y1 extent
+      const unsigned m = t0 + j >= 0 && t0 + j < T_z ? 0xffffffffu : 0u;
+      ya = __uint_as_float(__float_as_uint(ya) & m);
+      yb = __uint_as_float(__float_as_uint(yb) & m);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dst + j * CIS) =
+        __floats2bfloat162_rn(ya, yb);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
+                   const float* __restrict__ sh1,
+                   const float* __restrict__ w2, const float* __restrict__ wd,
+                   const float* __restrict__ bias, bf16* __restrict__ out,
+                   int F, int T_z, int T_out, int n_tiles, int n_bands,
+                   int n_work) {
+  extern __shared__ float4 smem4[];
+  bf16* w2b = reinterpret_cast<bf16*>(smem4);
+  bf16* y1b = w2b + W2_SZ;                           // two buffers
+  bf16* zts = y1b + 2 * Y1_SZ;                       // NSTAGE frame tiles
+  int* offs = reinterpret_cast<int*>(zts + NSTAGE * ZT_SZ);
+  float* wds = reinterpret_cast<float*>(offs + NSTAGE * ZR);
+  float* bs = wds + C * 3;
+
+  const int tid = threadIdx.x;
+#ifdef B0P_TIMER
+  unsigned long long tm[NSLOT] = {};
+  tm[0] = clk();
+  tm[2] = gtimer();
+  unsigned long long t_prev = tm[0];
+  // the delta since the last mark, into slot s
+  auto mark = [&](int s) {
+    const unsigned long long t = clk();
+    tm[s] += t - t_prev;
+    t_prev = t;
+  };
+#else
+  auto mark = [](int) {};
+#endif
+  // w2 [ci][tap][co] (f32) -> [tap][row][ci] (bf16), channel co at B row
+  // 8 n + 2 q + p for co = 8 q + 2 n + p (see the consumers); ci 32..39
+  // never read
+  for (int i = tid; i < C * 6 * C; i += THREADS) {
+    const int co = i % C, tap = (i / C) % 6, ci = i / (6 * C);
+    const int row = 8 * ((co & 7) >> 1) + 2 * (co >> 3) + (co & 1);
+    w2b[(tap * C + row) * CIS + ci] = __float2bfloat16(w2[i]);
+  }
+  for (int i = tid; i < C * 3; i += THREADS) wds[i] = wd[i];
+  for (int i = tid; i < C; i += THREADS) bs[i] = bias[i];
+  if constexpr ((CUT & 1) != 0)        // a cut phase leaves its tile unset
+    for (int i = tid; i < 2 * Y1_SZ; i += THREADS)
+      y1b[i] = __float2bfloat16(0.f);
+  __syncthreads();
+#ifdef B0P_TIMER
+  t_prev = clk();
+#endif
+
+  if (tid >= 32 * CWARPS) {
+    // ------------------------------------------------------- producers
+    const int ptid = tid - 32 * CWARPS;
+    const int cp = 2 * (ptid & 15);      // this thread's two channels
+    const int group = ptid >> 4;         // runs group, group + 16, ...
+    float wa[6], wb[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      wa[k] = w1[cp * 6 + k];
+      wb[k] = w1[(cp + 1) * 6 + k];
+    }
+    const float sa = sh1[cp], sb = sh1[cp + 1];
+
+    for (int k = 0; k < 2; ++k) {        // the first two items' tiles
+      const int work = blockIdx.x + k * gridDim.x;
+      if (work < n_work)
+        load_frame(zts + k * ZT_SZ, offs + k * ZR, z,
+                   item(work, n_tiles, n_bands, F), F, T_z, ptid);
+      cp_async_commit();
+    }
+    for (int k = 0;; ++k) {
+      const int work = blockIdx.x + k * gridDim.x;
+      if (work >= n_work) break;
+      const int s = k & 1, stage = k % NSTAGE;
+      const Item it = item(work, n_tiles, n_bands, F);
+      if (k >= 2) bar_sync(BAR_EMPTY + s, THREADS);   // item k - 2 read
+      mark(5);
+      const int next = work + 2 * gridDim.x;
+      if (next < n_work)
+        load_frame(zts + ((k + 2) % NSTAGE) * ZT_SZ,
+                   offs + ((k + 2) % NSTAGE) * ZR, z,
+                   item(next, n_tiles, n_bands, F), F, T_z, ptid);
+      cp_async_commit();
+      mark(6);
+      cp_async_wait<2>();                // this item's tile has landed
+      bar_sync(BAR_PRODUCERS, PTHREADS);
+      mark(7);
+
+      // y1 buffer s, [r][col][ci] at y1 row f0 + r, time 3 t0 - 1 + col;
+      // zero outside times 0 .. T_z - 1
+      if constexpr (!(CUT & 1)) {
+        const bf16* zt = zts + stage * ZT_SZ;
+        const int* off = offs + stage * ZR;
+        bf16* y1 = y1b + s * Y1_SZ;
+        for (int u = group; u < (it.rows + 1) * RUNS; u += PTHREADS / 16) {
+          const int r = u / RUNS, col0 = (u % RUNS) * RUN;
+          const bf16* za = zt + r * ZP + off[r] + col0;
+          const bf16* zc = zt + (r + 1) * ZP + off[r + 1] + col0;
+          float z0[RUN + 2], z1[RUN + 2];
+#pragma unroll
+          for (int j = 0; j < RUN + 2; ++j) {
+            z0[j] = bf(za[j]);
+            z1[j] = bf(zc[j]);
+          }
+          const int t_col0 = 3 * it.t0 - 1 + col0;    // y1 time of col0
+          bf16* dst = y1 + (r * YW + col0) * CIS + cp;
+          if (t_col0 >= 0 && t_col0 + RUN <= T_z)
+            conv1_run<false>(z0, z1, wa, wb, sa, sb, dst, t_col0, T_z);
+          else
+            conv1_run<true>(z0, z1, wa, wb, sa, sb, dst, t_col0, T_z);
+        }
+      }
+      bar_arrive(BAR_FULL + s, THREADS);
+      mark(8);
+#ifdef B0P_TIMER
+      tm[4] += 1;
+#endif
+    }
+    cp_async_wait<0>();
+  } else {
+    // ------------------------------------------------------- consumers
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2;
+    // ldmatrix row addresses: A row lane & 15 of m tile m is position
+    // a_pos[m], k half by lane >> 4; B rows are output channels, k half by
+    // (lane >> 3) & 1.  An accumulator row of group g at slot s = 2 m +
+    // (row >= 8) is position 3 g + 24 (s / 3) + s % 3, so slots 3 u ..
+    // 3 u + 2 are pooled column g + 8 u.
+    int a_pos[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int slot = 2 * m + ((lane >> 3) & 1);
+      a_pos[m] = 3 * (lane & 7) + 24 * (slot / 3) + slot % 3;
+    }
+    const uint32_t a_base = smem_u32(y1b) + (lane >> 4) * 8 * 2;
+    const uint32_t b_base =
+        smem_u32(w2b) +
+        ((((lane >> 4) * 8 + (lane & 7)) * CIS) + ((lane >> 3) & 1) * 8) * 2;
+
+    for (int k = 0;; ++k) {
+      const int work = blockIdx.x + k * gridDim.x;
+      if (work >= n_work) break;
+      const int s = k & 1, stage = k % NSTAGE;
+      const Item it = item(work, n_tiles, n_bands, F);
+      bar_sync(BAR_FULL + s, THREADS);
+      mark(9);
+      const bf16* zt = zts + stage * ZT_SZ;
+      const int* off = offs + stage * ZR;
+      const uint32_t a_buf = a_base + s * Y1_SZ * 2;
+
+      for (int row = warp; row < it.rows; row += CWARPS) {
+        float acc[MT][4][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+        if constexpr (!(CUT & 2)) {
+#pragma unroll
+          for (int tap = 0; tap < 6; ++tap) {
+            const int df = tap / 3, dt = tap % 3;
+#pragma unroll
+            for (int kh = 0; kh < 2; ++kh) {
+              uint32_t b[4][2];
+              const uint32_t ba = b_base + (tap * C * CIS + kh * 16) * 2;
+              ldmatrix_x4(ba, b[0][0], b[0][1], b[1][0], b[1][1]);
+              ldmatrix_x4(ba + 16 * CIS * 2, b[2][0], b[2][1], b[3][0],
+                          b[3][1]);
+#pragma unroll
+              for (int m = 0; m < MT; ++m) {
+                // A[p][ci] = y1[row + df][time col p + dt][kh * 16 + ci]
+                uint32_t a[4];
+                ldmatrix_x4(a_buf + (((row + df) * YW + a_pos[m] + dt) * CIS +
+                                     kh * 16) * 2,
+                            a[0], a[1], a[2], a[3]);
+#pragma unroll
+                for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, b[n]);
+              }
+            }
+          }
+        }
+        mark(10);
+
+        // element e of tile (m, n): B column 2 q + (e & 1) of lane q =
+        // lane % 4, which holds channel 8 q + 2 n + (e & 1), at slot
+        // 2 m + (e >> 1); the downsample reads z row f (frame row f + 1,
+        // tile row row + 1) at times 3 (t0 + t') - 1 + k for its pooled
+        // columns t' = g + 8 u
+        const int f = it.f0 + row, q = lane & 3;
+        const bf16* zr = zt + (row + 1) * ZP + off[row + 1] + 3 * g + 1;
+        float zz[U][5];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int j = 0; j < 5; ++j) zz[u][j] = bf(zr[24 * u + j]);
+        uint32_t ov[U][4];     // channels 8 q + 2 n, + 1 of column g + 8 u
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float o[U][2];
+#pragma unroll
+          for (int par = 0; par < 2; ++par) {
+            const int co = 8 * q + 2 * n + par;
+            const float d0 = wds[co * 3], d1 = wds[co * 3 + 1],
+                        d2 = wds[co * 3 + 2];
+            const float bo = bs[co];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              float v[3];
+#pragma unroll
+              for (int j = 0; j < 3; ++j) {
+                const int slot = 3 * u + j;
+                const float ds = fmaf(d0, zz[u][j],
+                                      fmaf(d1, zz[u][j + 1], d2 * zz[u][j + 2]));
+                v[j] = acc[slot / 2][n][2 * (slot % 2) + par] + ds;
+              }
+              o[u][par] = fmaxf(fmaxf(v[0], v[1]), v[2]) + bo;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const __nv_bfloat162 pr = __floats2bfloat162_rn(o[u][0], o[u][1]);
+            ov[u][n] = *reinterpret_cast<const uint32_t*>(&pr);
+          }
+        }
+        // out[b, f, t, co] (channels last): 16 contiguous bytes a lane, 512
+        // a warp's store
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int t = it.t0 + g + 8 * u;
+          if (t < T_out)
+            *reinterpret_cast<uint4*>(
+                out + ((it.b * F + f) * (long long)T_out + t) * C + 8 * q) =
+                make_uint4(ov[u][0], ov[u][1], ov[u][2], ov[u][3]);
+        }
+        mark(11);
+      }
+      if (work + 2 * gridDim.x < n_work)   // the producers wait for it
+        bar_arrive(BAR_EMPTY + s, THREADS);
+      mark(11);
+#ifdef B0P_TIMER
+      tm[4] += 1;
+#endif
+    }
+  }
+
+#ifdef B0P_TIMER
+  // thread 0 (consumer warp 0) and the first producer thread share the
+  // CTA's words: each writes its own slots
+  if (tid == 0 || tid == 32 * CWARPS) {
+    unsigned long long* t = timer_words();
+    if (tid == 0) {
+      t[0] = tm[0];
+      t[1] = clk();
+      t[2] = tm[2];
+      t[3] = gtimer();
+      t[4] = tm[4];
+      for (int i = 9; i < NSLOT; ++i) t[i] = tm[i];
+    } else {
+      for (int i = 5; i < 9; ++i) t[i] = tm[i];
+    }
+  }
+#endif
+}
+
+}  // namespace
+
+// z (B, F + 2, T_z + 2) bf16, zero-bordered, contiguous; out (B, F,
+// T_z / 3, channels) bf16 in memory, 16-byte aligned (a channels_last
+// (B, channels, F, T_z / 3) tensor).  Float32 on the device: w1 (C, 6) conv1 taps [df*3+dt]
+// times the bn2 scale, sh1 (C) the folded shift, w2 (C, 6, C) conv2 taps
+// [ci][df*3+dt][co], wd (C, 3) downsample taps, bias (C) conv2 bias +
+// downsample bias (ops/fused_stack.py:fold_block0).  channels must be 32;
+// n_tiles = ceil(T_out / 16), n_bands = ceil(F / 23), n_work = B n_bands
+// n_tiles (ops/block0_pipe.py:pipe_work).  Returns the launch's cudaError_t
+// (0 on success).
+extern "C" int aasist_block0_pipe(const void* z, const float* w1,
+                                  const float* sh1, const float* w2,
+                                  const float* wd, const float* bias,
+                                  void* out, int B, int F, int T_z,
+                                  int channels, int n_tiles, int n_bands,
+                                  int n_work, void* stream) {
+  const int T_out = T_z / 3;
+  if (channels != C || B <= 0 || F <= 0 || T_out <= 0 ||
+      n_tiles != (T_out + TO - 1) / TO || n_bands != (F + RB - 1) / RB ||
+      (long long)n_work != (long long)n_tiles * n_bands * B)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      block0_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, block0_pipe_kernel, THREADS, SMEM)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long blocks = (long long)sms * per_sm;
+  const int grid = (int)(n_work < blocks ? n_work : blocks);
+#ifdef B0P_TIMER
+  if ((e = timer_arm(grid)) != cudaSuccess) return (int)e;
+#endif
+  block0_pipe_kernel<<<grid, THREADS, SMEM,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(z), w1, sh1, w2, wd, bias,
+      static_cast<bf16*>(out), F, T_z, T_out, n_tiles, n_bands, n_work);
+  return (int)cudaGetLastError();
+}
+
+// The timer builds' side buffer of the last launch (b0_timer.cuh:
+// timer_read).
+extern "C" int aasist_block0_pipe_timer(void* dst, int* ctas, void* stream) {
+  return timer_read(dst, ctas, stream);
+}

@@ -1,18 +1,24 @@
 // The sinc frontend as matrix products on Hopper's tensor cores (sm_90a):
 // sinc conv1d (C filters x 129 taps) -> |.| -> max pool (3,3) over (filter,
 // time), floor semantics -> eval BatchNorm of one channel folded to a scalar
-// scale/shift -> SELU.  (B, L) bf16 waveform in; out is 24 rows by
-// T = (L-128)/3 columns per batch row, rows C/3..23 zero, stored
+// scale/shift -> SELU.  (B, L) bf16 waveform in; F = C/3 rows by
+// T = (L-128)/3 columns per batch row out, stored in one of four layouts:
 //
-//   filter-major (24, B, T)   aasist_frontend_dot_fm
-//   batch-major  (B, 24, T)   aasist_frontend_dot_bm
+//   filter-major (24, B, T), rows F..23 zero      aasist_frontend_dot_fm
+//   batch-major  (B, 24, T), rows F..23 zero      aasist_frontend_dot_bm
+//   the Scorer's (B, 1, F, T)                     aasist_frontend_dot_plain
+//   the zero-bordered frame (B, F + 2, T + 2)     aasist_frontend_dot_padded
 //
 // Replaces the TPU kernels tools/probe_frontend_variants.py:kernel_v2
 // (launched by run_v2) and tools/probe_fe_fix.py:kernel_v2bm (launched by
-// run_v2bm).  What those two have in common is that the conv runs on the
-// matrix unit (one 2-D dot per batch row); what separates them is the layout
-// they store, here a template parameter.  Their mod-3 phase planes, the
-// 3 x 44-tap packing (K = 132, M = 210) and the G / u block sizes are
+// run_v2bm), and in its last two layouts aasist_tpu/ops/fused_frontend.py:
+// _kernel (launched by _run) and tools/fused_stack.py:_fe_kernel (launched
+// by _fe_run), whose frame block 0 (csrc/block0_pipe.cu,
+// csrc/fused_block0.cu) reads; the padded store writes the border's zeros
+// itself.  All four compute one function: bf16 products, f32 sums, one
+// rounding at the store.  What separates them is the layout they store, a
+// template parameter here.  The TPU kernels' mod-3 / mod-9 phase planes,
+// the 3 x 44-tap packing (K = 132, M = 210) and the G / u block sizes are
 // Mosaic's way around its missing stride-3 lane access and do not carry
 // over: here the pool reads accumulator registers.
 //
@@ -120,9 +126,13 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// out[p, b, t] at p * stride_p + b * stride_b + t: filter-major (24, B, T)
-// has strides (B T, T), batch-major (B, 24, T) has (T, 24 T).
-template <bool BATCH_MAJOR>
+// The store layouts (the kernel's template parameter).
+enum Layout { FM = 0, BM = 1, PLAIN = 2, PADDED = 3 };
+
+// Work item w is batch row w / n_tiles, pooled columns
+// [(w % n_tiles) TILE, + TILE) (ops/frontend_variants.py:dot_work states
+// the same decomposition and the wrapper passes its n_tiles and n_work).
+template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS, BLOCKS)
 frontend_dot_kernel(const bf16* __restrict__ x, const bf16* __restrict__ bank,
                     const float* __restrict__ sc, bf16* __restrict__ out,
@@ -239,27 +249,58 @@ frontend_dot_kernel(const bf16* __restrict__ x, const bf16* __restrict__ bank,
     }
     __syncthreads();
 
-    const long long stride_p = BATCH_MAJOR ? T_out : (long long)B * T_out;
-    const long long stride_b = BATCH_MAJOR ? (long long)ROWS * T_out : T_out;
-    bf16* ob = out + b * stride_b + t0;
-    for (int i = tid; i < ROWS * TILE; i += THREADS) {
-      const int p = i / TILE, col = i % TILE;
-      if (t0 + col < T_out) ob[p * stride_p + col] = os[p * OSW + col];
+    if constexpr (LAYOUT == FM || LAYOUT == BM) {
+      // out[p, b, t] at p * stride_p + b * stride_b + t: filter-major
+      // (24, B, T) has strides (B T, T), batch-major (B, 24, T) (T, 24 T)
+      const long long stride_p =
+          LAYOUT == BM ? T_out : (long long)B * T_out;
+      const long long stride_b =
+          LAYOUT == BM ? (long long)ROWS * T_out : T_out;
+      bf16* ob = out + b * stride_b + t0;
+      for (int i = tid; i < ROWS * TILE; i += THREADS) {
+        const int p = i / TILE, col = i % TILE;
+        if (t0 + col < T_out) ob[p * stride_p + col] = os[p * OSW + col];
+      }
+    } else if constexpr (LAYOUT == PLAIN) {
+      bf16* ob = out + (long long)b * F_out * T_out + t0;
+      for (int i = tid; i < F_out * TILE; i += THREADS) {
+        const int p = i / TILE, col = i % TILE;
+        if (t0 + col < T_out)
+          ob[(long long)p * T_out + col] = os[p * OSW + col];
+      }
+    } else {
+      // frame row p + 1, column t + 1 holds row p, time t; rows 0 and
+      // F + 1 of this item's columns are zero, and the items at either end
+      // of the row write columns 0 and T + 1
+      const long long W = T_out + 2;
+      bf16* ob = out + (long long)b * (F_out + 2) * W;
+      for (int i = tid; i < (F_out + 2) * TILE; i += THREADS) {
+        const int p = i / TILE, col = i % TILE;
+        if (t0 + col < T_out)
+          ob[p * W + t0 + col + 1] =
+              (p == 0 || p == F_out + 1) ? zero : os[(p - 1) * OSW + col];
+      }
+      if (t0 == 0)
+        for (int p = tid; p < F_out + 2; p += THREADS) ob[p * W] = zero;
+      if (t0 + TILE >= T_out)
+        for (int p = tid; p < F_out + 2; p += THREADS)
+          ob[p * W + T_out + 1] = zero;
     }
   }
 }
 
-template <bool BATCH_MAJOR>
+template <int LAYOUT>
 int launch(const void* x, const void* bank, const float* sc, void* out, int B,
-           int L, int C, void* stream) {
+           int L, int C, int n_tiles, int n_work, void* stream) {
   const int F_out = C / 3;
   const int T_out = (L - (KSIZE - 1)) / 3;
   if (B <= 0 || F_out <= 0 || F_out > ROWS || T_out <= 0)
     return (int)cudaErrorInvalidValue;
-  const int n_tiles = (T_out + TILE - 1) / TILE;
-  const long long n_work = (long long)n_tiles * B;
-  if (n_work > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  auto kernel = frontend_dot_kernel<BATCH_MAJOR>;
+  // the caller's decomposition must be this kernel's
+  if (n_tiles != (T_out + TILE - 1) / TILE ||
+      (long long)n_work != (long long)n_tiles * B)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = frontend_dot_kernel<LAYOUT>;
   cudaError_t e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -274,24 +315,44 @@ int launch(const void* x, const void* bank, const float* sc, void* out, int B,
   const int grid = (int)(n_work < blocks ? n_work : blocks);
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(bank), sc,
-      static_cast<bf16*>(out), B, L, F_out, T_out, n_tiles, (int)n_work);
+      static_cast<bf16*>(out), B, L, F_out, T_out, n_tiles, n_work);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (B, L) and bank (C, 129) bf16, C / 3 <= 24; sc = {scale, shift} float32
-// on the device; out (24, B, (L-128)/3) bf16.  Returns the launch's
-// cudaError_t (0 on success).
+// on the device; out (24, B, (L-128)/3) bf16; n_tiles = ceil(T / 128) and
+// n_work = B n_tiles (ops/frontend_variants.py:dot_work).  Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int aasist_frontend_dot_fm(const void* x, const void* bank,
                                       const float* sc, void* out, int B, int L,
-                                      int C, void* stream) {
-  return launch<false>(x, bank, sc, out, B, L, C, stream);
+                                      int C, int n_tiles, int n_work,
+                                      void* stream) {
+  return launch<FM>(x, bank, sc, out, B, L, C, n_tiles, n_work, stream);
 }
 
 // As aasist_frontend_dot_fm, with out (B, 24, (L-128)/3).
 extern "C" int aasist_frontend_dot_bm(const void* x, const void* bank,
                                       const float* sc, void* out, int B, int L,
-                                      int C, void* stream) {
-  return launch<true>(x, bank, sc, out, B, L, C, stream);
+                                      int C, int n_tiles, int n_work,
+                                      void* stream) {
+  return launch<BM>(x, bank, sc, out, B, L, C, n_tiles, n_work, stream);
+}
+
+// As aasist_frontend_dot_fm, with out (B, 1, C/3, (L-128)/3).
+extern "C" int aasist_frontend_dot_plain(const void* x, const void* bank,
+                                         const float* sc, void* out, int B,
+                                         int L, int C, int n_tiles,
+                                         int n_work, void* stream) {
+  return launch<PLAIN>(x, bank, sc, out, B, L, C, n_tiles, n_work, stream);
+}
+
+// As aasist_frontend_dot_fm, with out the zero-bordered
+// (B, C/3 + 2, (L-128)/3 + 2) frame.
+extern "C" int aasist_frontend_dot_padded(const void* x, const void* bank,
+                                          const float* sc, void* out, int B,
+                                          int L, int C, int n_tiles,
+                                          int n_work, void* stream) {
+  return launch<PADDED>(x, bank, sc, out, B, L, C, n_tiles, n_work, stream);
 }

@@ -95,10 +95,23 @@
 //
 // Variant builds read `bias` as (3, C): conv2's bias plus the downsample's,
 // the downsample's, conv2's.
+//
+//   B0P_TIMER    the plain kernels, and thread 0 of each CTA of the bf16
+//                kernel adds clock64() deltas per phase of an item (frame
+//                load with its two barriers, conv1 + SELU with its barrier,
+//                conv2's MMA loop, the downsample, pool and store) into
+//                registers and writes them with the CTA's first and last
+//                clock64 and %globaltimer into the side buffer that
+//                aasist_fused_block0_timer reads, in the slots that
+//                csrc/block0_pipe.cu uses (ops/block0_pipe.py:phase_ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "b0_timer.cuh"
 
 #if defined(B0_EPI) || defined(B0_RMW) || defined(B0_B2SLICE) || \
     defined(B0_STAGE) || defined(B0_CUT)
@@ -137,6 +150,11 @@ constexpr int NBIAS = 1;
 #endif
 static_assert(EPI >= 0 && EPI <= 4 && STAGE >= 0 && STAGE <= 5 && CUT >= 0 &&
               CUT < 16, "unknown variant");
+
+// Timer slots (b0_timer.cuh): 0 / 1 first and last clock64, 2 / 3 first
+// and last %globaltimer (ns), 4 items, then clocks summed over items: 5 the
+// frame load, 6 conv1 + SELU, 7 conv2's MMA loop, 8 the downsample, pool
+// and store; 9-11 unused.
 
 constexpr int C = 32;             // block-0 channels (filts[1][1])
 constexpr int TO = 32;            // pooled columns per tile
@@ -493,6 +511,20 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
   float* rmw_tile = st + (STAGE < 4 ? ST_SZ : 0);  // B0_RMW
 
   const int tid = threadIdx.x;
+#ifdef B0P_TIMER
+  unsigned long long tm[NSLOT] = {};
+  tm[0] = clk();
+  tm[2] = gtimer();
+  unsigned long long t_prev = tm[0];
+  // thread 0: the delta since the last mark, into slot s
+  auto mark = [&](int s) {
+    const unsigned long long t = clk();
+    tm[s] += t - t_prev;
+    t_prev = t;
+  };
+#else
+  auto mark = [](int) {};
+#endif
   // w2 [ci][tap][co] (f32) -> [tap][co][ci] (bf16); ci 32..39 never read
   for (int i = tid; i < C * 6 * C; i += THREADS) {
     const int co = i % C, tap = (i / C) % 6, ci = i / (6 * C);
@@ -533,11 +565,15 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
       smem_u32(w2b) +
       ((((lane >> 4) * 8 + (lane & 7)) * CIS) + ((lane >> 3) & 1) * 8) * 2;
 
+#ifdef B0P_TIMER
+  t_prev = clk();
+#endif
   for (int work = blockIdx.x; work < n_work; work += gridDim.x) {
     const Item it = item<R>(work, n_tiles, n_bands);
     __syncthreads();                     // last item's readers are done
     if constexpr (!(CUT & 1)) load_frame_tile<R>(zs, z, it, F, T_z);
     __syncthreads();
+    mark(5);
 
     if constexpr (STAGE < 3) {
       // tile column c is frame column 3 t0 - 5 + c: pooled column t0 + d
@@ -619,6 +655,7 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
       }
     }
     __syncthreads();
+    mark(6);
 
     if constexpr (STAGE == 3) {
       // y1 time 3 t' + k is tile column 3 d + 1 + k; the downsample reads
@@ -704,6 +741,7 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
           for (int e = 0; e < 4; ++e)
             acc[m][n][e] = rt[((m * 4 + n) * 4 + e) * 32];
     }
+    mark(7);
 
     // element e of tile (m, n): channel n*8 + 2*(lane%4) + (e & 1), slot
     // 2 m + (e >> 1); the downsample reads z row f (frame row f + 1) at
@@ -749,7 +787,19 @@ block0_tc_kernel(const __nv_bfloat16* __restrict__ z,
                 fmaxf(fmaxf(v[0], v[1]), v[2]) + bo);
         }
       }
+    mark(8);
+#ifdef B0P_TIMER
+    tm[4] += 1;
+#endif
   }
+#ifdef B0P_TIMER
+  if (tid == 0) {
+    unsigned long long* t = timer_words();
+    tm[1] = clk();
+    tm[3] = gtimer();
+    for (int i = 0; i < NSLOT; ++i) t[i] = tm[i];
+  }
+#endif
 }
 
 template <typename T, typename K>
@@ -777,6 +827,12 @@ cudaError_t launch(K kernel, int threads, int rows, size_t smem,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long blocks = (long long)sms * per_sm;
   const int grid = (int)(n_work < blocks ? n_work : blocks);
+#ifdef B0P_TIMER
+  // only the bf16 kernel is timed: an f32 launch leaves the last bf16
+  // launch's count
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    if ((e = timer_arm(grid)) != cudaSuccess) return e;
+#endif
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(z), w1, sh1, w2, wd, bias, static_cast<T*>(out),
       F, T_z, T_out, n_tiles, n_bands, (int)n_work);
@@ -815,4 +871,10 @@ extern "C" int aasist_fused_block0(const void* z, const float* w1,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The timer builds' side buffer of the last bf16 launch (b0_timer.cuh:
+// timer_read).
+extern "C" int aasist_fused_block0_timer(void* dst, int* ctas, void* stream) {
+  return timer_read(dst, ctas, stream);
 }

@@ -3,9 +3,10 @@
 Each source under ``csrc/`` compiles to a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/aasist_tpu_torch/`` at the root of the
-checkout, named by a hash of the source, the flags and the preprocessor
-definitions: an edited source is rebuilt, an unchanged one is reused, and a
-variant built with other definitions gets a library of its own.
+checkout, named by a hash of the source, the headers under ``csrc/``, the
+flags and the preprocessor definitions: an edited source or header is
+rebuilt, an unchanged one is reused, and a variant built with other
+definitions gets a library of its own.
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ def load(name: str, defines: Optional[Mapping[str, object]] = None
         return _loaded[key]
     src = CSRC / f"{name}.cu"
     flags = [*NVCC_FLAGS, *dflags]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():

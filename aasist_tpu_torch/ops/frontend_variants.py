@@ -1,24 +1,34 @@
-"""The fused sinc frontend computed on the tensor cores, in two store
+"""The fused sinc frontend computed on the tensor cores, in four store
 layouts (``csrc/frontend_dot.cu``).
 
 Counterpart of the two dot formulations of the TPU frontend,
 ``tools/probe_frontend_variants.py:run_v2`` (filter-major store) and
 ``tools/probe_fe_fix.py:run_v2bm`` (batch-major store, which block 0's conv
-reads without a transpose).  Both compute ``ops.fused_frontend``'s function,
-sinc conv (C x 129) -> |.| -> max pool (3,3) -> eval BatchNorm(1) -> SELU,
-padded to 24 rows:
+reads without a transpose), and, through the same kernel, of the Scorer's
+frontend (``aasist_tpu/ops/fused_frontend.py:_run``) and of the padded
+frontend of the frontend + block-0 pair (``tools/fused_stack.py:_fe_run``).
+All compute ``ops.fused_frontend``'s function, sinc conv (C x 129) -> |.|
+-> max pool (3,3) -> eval BatchNorm(1) -> SELU, and store it as
 
-    fused_frontend_dot_fm(x, bank, bn_p, bn_s) -> (24, B, T)
-    fused_frontend_dot_bm(x, bank, bn_p, bn_s) -> (B, 24, T)
+    fused_frontend_dot_fm(x, bank, bn_p, bn_s)      -> (24, B, T)
+    fused_frontend_dot_bm(x, bank, bn_p, bn_s)      -> (B, 24, T)
+    fused_frontend_dot_plain(x, bank, bn_p, bn_s)   -> (B, 1, C // 3, T)
+    fused_frontend_dot_padded(x, bank, bn_p, bn_s)  -> (B, C // 3 + 2, T + 2)
 
-with T = (L - 128) // 3, rows 0 .. C // 3 - 1 the frontend's output and the
-rows above them zero (row 23 for the 70-filter bank).  The TPU kernels store
-n_tiles * u columns; the columns past T are their tile padding and no part
-of the function.  Their host-side phase split (``make_xt``) and the G / u
-block sizes have no counterpart: the kernel reads the waveform directly.
+with T = (L - 128) // 3.  In the first two, rows 0 .. C // 3 - 1 are the
+frontend's output and the rows above them zero (row 23 for the 70-filter
+bank); the last is the zero-bordered frame that block 0 reads.  The TPU
+probes store n_tiles * u columns; the columns past T are their tile padding
+and no part of the function.  Their host-side phase split (``make_xt``) and
+the G / u block sizes have no counterpart: the kernel reads the waveform
+directly.
 
 The kernel is bfloat16 only: bf16 operands on ``mma.sync``, f32
-accumulation, one rounding at the store.  A float32 CUDA tensor raises
+accumulation, one rounding at the store, as the TPU kernels compute.  It
+cannot compute the float32 function: its products are of bf16 operands, so
+a float32 input would be rounded first and miss the f32 gate (2e-4) of the
+Scorer's f32 path, which keeps the CUDA-core kernel of
+``ops/fused_frontend.py`` instead.  A float32 CUDA tensor raises
 ``TypeError``; it is never handed to another kernel or to the plain
 version.  CPU tensors of either type take the plain versions
 (``*_reference``).
@@ -27,7 +37,7 @@ version.  CPU tensors of either type take the plain versions
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,25 +66,57 @@ def fused_frontend_dot_fm_reference(x: torch.Tensor, bank: torch.Tensor,
         1, 0, 2).contiguous()
 
 
+# Pooled columns of one work item of the kernel (16 SUB WARPS there).
+DOT_TILE = 128
+
+
+def dot_work(b: int, length: int) -> Tuple[int, int]:
+    """The kernel's work decomposition for a (b, length) waveform:
+    (n_tiles, n_work).  Item w covers batch row w // n_tiles and pooled
+    columns [(w % n_tiles) * DOT_TILE, + DOT_TILE) clipped to T."""
+    t_out = (length - (fe.KSIZE - 1)) // 3
+    n_tiles = -(-t_out // DOT_TILE)
+    return n_tiles, b * n_tiles
+
+
+def dot_items(b: int, length: int):
+    """Every work item of ``dot_work`` as (batch row, first column, end
+    column): the columns each item stores."""
+    t_out = (length - (fe.KSIZE - 1)) // 3
+    n_tiles, n_work = dot_work(b, length)
+    for w in range(n_work):
+        t0 = (w % n_tiles) * DOT_TILE
+        yield w // n_tiles, t0, min(t0 + DOT_TILE, t_out)
+
+
+_LAYOUTS = ("fm", "bm", "plain", "padded")
+
+
 def _launch(name: str, x: torch.Tensor, bank: torch.Tensor, bn_p, bn_s,
-            batch_major: bool) -> torch.Tensor:
+            layout: str) -> torch.Tensor:
     b, length, c, sc = fe.check_args(name, x, bank, bn_p, bn_s,
                                      dtypes=(torch.bfloat16,), max_rows=ROWS)
     t_out = (length - (fe.KSIZE - 1)) // 3
+    f_out = c // 3
+    n_tiles, n_work = dot_work(b, length)
+    if n_work >= 2 ** 31:
+        raise ValueError(f"{name}: {n_work} work items exceed the kernel's "
+                         "int range")
 
     from aasist_tpu_torch.ops import _build
-    lib = _build.load("frontend_dot").lib
-    fn = lib.aasist_frontend_dot_bm if batch_major else \
-        lib.aasist_frontend_dot_fm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn = getattr(_build.load("frontend_dot").lib,
+                 f"aasist_frontend_dot_{layout}")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    shape = (b, ROWS, t_out) if batch_major else (ROWS, b, t_out)
+    shape = {"fm": (ROWS, b, t_out), "bm": (b, ROWS, t_out),
+             "plain": (b, 1, f_out, t_out),
+             "padded": (b, f_out + 2, t_out + 2)}[layout]
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), bank.data_ptr(), sc.data_ptr(),
-                 out.data_ptr(), b, length, c, stream)
+                 out.data_ptr(), b, length, c, n_tiles, n_work, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {err})")
     return out
@@ -90,7 +132,7 @@ def fused_frontend_dot_fm(x: torch.Tensor, bank: torch.Tensor,
     ``fused_frontend_dot_fm.launches``."""
     if x.device.type == "cpu":
         return fused_frontend_dot_fm_reference(x, bank, bn_p, bn_s)
-    out = _launch("fused_frontend_dot_fm", x, bank, bn_p, bn_s, False)
+    out = _launch("fused_frontend_dot_fm", x, bank, bn_p, bn_s, "fm")
     fused_frontend_dot_fm.launches += 1
     return out
 
@@ -105,10 +147,56 @@ def fused_frontend_dot_bm(x: torch.Tensor, bank: torch.Tensor,
     ``fused_frontend_dot_bm.launches``."""
     if x.device.type == "cpu":
         return fused_frontend_dot_bm_reference(x, bank, bn_p, bn_s)
-    out = _launch("fused_frontend_dot_bm", x, bank, bn_p, bn_s, True)
+    out = _launch("fused_frontend_dot_bm", x, bank, bn_p, bn_s, "bm")
     fused_frontend_dot_bm.launches += 1
+    return out
+
+
+def fused_frontend_dot_plain(x: torch.Tensor, bank: torch.Tensor,
+                             bn_p: Mapping[str, torch.Tensor],
+                             bn_s: Mapping[str, torch.Tensor]
+                             ) -> torch.Tensor:
+    """(B, L) waveform -> the frontend in the Scorer's layout,
+    (B, 1, C // 3, (L - 128) // 3), in ``x``'s dtype: the bf16 route of
+    ``ops.fused_frontend.fused_frontend``.  Arguments and types as
+    ``fused_frontend_dot_fm``.  Every launch adds one to
+    ``fused_frontend_dot_plain.launches``."""
+    if x.device.type == "cpu":
+        return fe.fused_frontend_reference(x, bank, bn_p, bn_s)
+    out = _launch("fused_frontend_dot_plain", x, bank, bn_p, bn_s, "plain")
+    fused_frontend_dot_plain.launches += 1
+    return out
+
+
+def fused_frontend_dot_padded_reference(x: torch.Tensor, bank: torch.Tensor,
+                                        bn_p: Mapping[str, torch.Tensor],
+                                        bn_s: Mapping[str, torch.Tensor]
+                                        ) -> torch.Tensor:
+    """The plain version: (B, L) -> (B, C // 3 + 2, (L - 128) // 3 + 2),
+    the frontend's output with a zero border of one row and one column."""
+    return F.pad(fe.fused_frontend_reference(x, bank, bn_p, bn_s)[:, 0],
+                 (1, 1, 1, 1))
+
+
+def fused_frontend_dot_padded(x: torch.Tensor, bank: torch.Tensor,
+                              bn_p: Mapping[str, torch.Tensor],
+                              bn_s: Mapping[str, torch.Tensor]
+                              ) -> torch.Tensor:
+    """(B, L) waveform -> the frontend inside the zero-bordered
+    (B, C // 3 + 2, (L - 128) // 3 + 2) frame that block 0 reads, in
+    ``x``'s dtype: the bf16 route of
+    ``ops.fused_stack.fused_frontend_padded``.  Arguments and types as
+    ``fused_frontend_dot_fm``.  Every launch adds one to
+    ``fused_frontend_dot_padded.launches``."""
+    if x.device.type == "cpu":
+        return fused_frontend_dot_padded_reference(x, bank, bn_p, bn_s)
+    out = _launch("fused_frontend_dot_padded", x, bank, bn_p, bn_s,
+                  "padded")
+    fused_frontend_dot_padded.launches += 1
     return out
 
 
 fused_frontend_dot_fm.launches = 0
 fused_frontend_dot_bm.launches = 0
+fused_frontend_dot_plain.launches = 0
+fused_frontend_dot_padded.launches = 0

@@ -1,10 +1,15 @@
 """Fused sinc frontend: conv1d (C x 129) -> |.| -> max pool (3,3) -> eval
-BatchNorm(1) -> SELU in one CUDA kernel (``csrc/fused_frontend.cu``).
+BatchNorm(1) -> SELU in one CUDA kernel.
 
 Counterpart of ``aasist_tpu/ops/fused_frontend.py``.  ``fused_frontend``
-launches the kernel for CUDA tensors and raises on anything it does not
-take; for CPU tensors it computes the plain PyTorch version,
-``fused_frontend_reference``.  There is no fallback from one to the other.
+picks the kernel by the input's type: bfloat16 CUDA tensors go to the
+tensor-core kernel (``ops/frontend_variants.py:fused_frontend_dot_plain``,
+``csrc/frontend_dot.cu``), float32 ones to the CUDA-core kernel
+(``fused_frontend_fma``, ``csrc/fused_frontend.cu``), which sums f32
+products and so meets the f32 path's gate that bf16 operands cannot.
+Either launches its kernel or raises on anything it does not take; CPU
+tensors take the plain PyTorch version, ``fused_frontend_reference``.
+There is no fallback from one to another.
 """
 
 from __future__ import annotations
@@ -109,6 +114,20 @@ def launch(name: str, x: torch.Tensor, bank: torch.Tensor,
     return out
 
 
+def fused_frontend_fma(x: torch.Tensor, bank: torch.Tensor,
+                       bn_p: Mapping[str, torch.Tensor],
+                       bn_s: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The CUDA-core kernel (``csrc/fused_frontend.cu``), float32 or
+    bfloat16: (B, L) waveform -> (B, 1, C // 3, (L - 128) // 3).  Arguments
+    as ``fused_frontend``.  Every launch adds one to
+    ``fused_frontend_fma.launches``."""
+    if x.device.type == "cpu":
+        return fused_frontend_reference(x, bank, bn_p, bn_s)
+    out = launch("fused_frontend_fma", x, bank, bn_p, bn_s, padded=False)
+    fused_frontend_fma.launches += 1
+    return out
+
+
 def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
                    bn_p: Mapping[str, torch.Tensor],
                    bn_s: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -117,13 +136,17 @@ def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
 
     ``bank`` (C, 129) may carry freq-aug masking; ``bn_p`` holds the
     one-channel BatchNorm's ``weight``/``bias``, ``bn_s`` its ``mean``/
-    ``var``.  Every launch adds one to ``fused_frontend.launches``.
+    ``var``.  bfloat16 CUDA tensors run the tensor-core kernel, anything
+    else on a device the CUDA-core kernel (module docstring); the kernel's
+    wrapper counts the launch.
     """
     if x.device.type == "cpu":
         return fused_frontend_reference(x, bank, bn_p, bn_s)
-    out = launch("fused_frontend", x, bank, bn_p, bn_s, padded=False)
-    fused_frontend.launches += 1
-    return out
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        from aasist_tpu_torch.ops.frontend_variants import (
+            fused_frontend_dot_plain)
+        return fused_frontend_dot_plain(x, bank, bn_p, bn_s)
+    return fused_frontend_fma(x, bank, bn_p, bn_s)
 
 
-fused_frontend.launches = 0
+fused_frontend_fma.launches = 0

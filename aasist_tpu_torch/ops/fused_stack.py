@@ -7,13 +7,29 @@ Counterpart of ``tools/fused_stack.py`` (the JAX package's opt-in
     -> conv1 (1->C, (2,3)) -> bn2 -> SELU -> conv2 (C->C, (2,3))
        + downsample (1->C, (1,3)) -> maxpool (1,3)                (block 0)
 
-``fused_frontend_padded`` (``csrc/fused_frontend.cu``) writes the frontend
-into a zero-bordered (B, F + 2, T_z + 2) frame, ``fused_block0``
-(``csrc/fused_block0.cu``) takes that frame to the block's pooled
-(B, C, F, T_z // 3) output, and ``fused_frontend_block0`` chains the two.
-Each wrapper launches its kernel for CUDA tensors and raises on anything
-the kernel does not take; for CPU tensors it computes its plain PyTorch
-version (``*_reference``).  There is no fallback from one to the other.
+``fused_frontend_padded`` writes the frontend into a zero-bordered
+(B, F + 2, T_z + 2) frame, ``fused_block0`` takes that frame to the block's
+pooled (B, C, F, T_z // 3) output, and ``fused_frontend_block0`` chains the
+two.  Each picks its kernel by the input's type:
+
+    bfloat16   the tensor-core frontend's padded store
+               (``ops/frontend_variants.py:fused_frontend_dot_padded``,
+               ``csrc/frontend_dot.cu``), then the warp-specialised block 0
+               (``ops/block0_pipe.py:block0_pipe``, ``csrc/block0_pipe.cu``),
+               whose output is channels last;
+    float32    the CUDA-core frontend's padded store
+               (``fused_frontend_padded_fma``, ``csrc/fused_frontend.cu``),
+               then block 0 with conv2 on the CUDA cores
+               (``fused_block0_fma``, ``csrc/fused_block0.cu``), whose f32
+               sums of f32 products meet the f32 path's gate that bf16
+               tensor-core operands cannot.
+
+The older bf16 block-0 kernel stays callable as ``fused_block0_mma`` (the
+version the new one is measured against, and the base of the probe builds
+of ``ops/block0_variants.py``).  Each wrapper launches its kernel for CUDA
+tensors and raises on anything the kernel does not take; for CPU tensors it
+computes its plain PyTorch version (``*_reference``).  There is no fallback
+from one to another.
 
 The TPU kernels' mod-9 / mod-3 polyphase packing and K=18 / off-split
 weight packing existed only because Mosaic has no stride-3 lane access;
@@ -45,6 +61,22 @@ def fused_frontend_padded_reference(x: torch.Tensor, bank: torch.Tensor,
                  (1, 1, 1, 1))
 
 
+def fused_frontend_padded_fma(x: torch.Tensor, bank: torch.Tensor,
+                              bn_p: Mapping[str, torch.Tensor],
+                              bn_s: Mapping[str, torch.Tensor]
+                              ) -> torch.Tensor:
+    """The CUDA-core kernel's padded store (``csrc/fused_frontend.cu``),
+    float32 or bfloat16.  Arguments and output as
+    ``fused_frontend_padded``.  Every launch adds one to
+    ``fused_frontend_padded_fma.launches``."""
+    if x.device.type == "cpu":
+        return fused_frontend_padded_reference(x, bank, bn_p, bn_s)
+    out = fe.launch("fused_frontend_padded_fma", x, bank, bn_p, bn_s,
+                    padded=True)
+    fused_frontend_padded_fma.launches += 1
+    return out
+
+
 def fused_frontend_padded(x: torch.Tensor, bank: torch.Tensor,
                           bn_p: Mapping[str, torch.Tensor],
                           bn_s: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -52,18 +84,21 @@ def fused_frontend_padded(x: torch.Tensor, bank: torch.Tensor,
     inside a zero-bordered (B, C // 3 + 2, (L - 128) // 3 + 2) frame, in
     ``x``'s dtype: the input layout of ``fused_block0``.
 
-    Arguments as ``ops.fused_frontend.fused_frontend``.  Every launch adds
-    one to ``fused_frontend_padded.launches``.
+    Arguments as ``ops.fused_frontend.fused_frontend``.  bfloat16 CUDA
+    tensors run the tensor-core kernel, anything else on a device the
+    CUDA-core kernel (module docstring); the kernel's wrapper counts the
+    launch.
     """
     if x.device.type == "cpu":
         return fused_frontend_padded_reference(x, bank, bn_p, bn_s)
-    out = fe.launch("fused_frontend_padded", x, bank, bn_p, bn_s,
-                    padded=True)
-    fused_frontend_padded.launches += 1
-    return out
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        from aasist_tpu_torch.ops.frontend_variants import (
+            fused_frontend_dot_padded)
+        return fused_frontend_dot_padded(x, bank, bn_p, bn_s)
+    return fused_frontend_padded_fma(x, bank, bn_p, bn_s)
 
 
-fused_frontend_padded.launches = 0
+fused_frontend_padded_fma.launches = 0
 
 
 class Block0Params(NamedTuple):
@@ -116,16 +151,13 @@ def fused_block0_reference(z: torch.Tensor, block: torch.nn.Module
     return block(z[:, None, 1:-1, 1:-1])
 
 
-def launch_block0(name: str, z: torch.Tensor, block: torch.nn.Module,
-                  defines: Optional[Mapping[str, object]] = None,
-                  bias: Optional[torch.Tensor] = None,
-                  dtypes: Tuple[torch.dtype, ...] = tuple(fe._DTYPES)
-                  ) -> torch.Tensor:
-    """Check a CUDA call of the block-0 kernel and launch it: the frame
-    (B, F + 2, T_z + 2) -> (B, C, F, T_z // 3).  ``defines`` picks a
-    compile-time variant of ``csrc/fused_block0.cu`` and ``bias`` replaces
-    ``fold_block0``'s (``ops.block0_variants`` passes both); ``dtypes`` are
-    the frame types the build takes."""
+def check_frame(name: str, z: torch.Tensor, block: torch.nn.Module,
+                dtypes: Tuple[torch.dtype, ...]
+                ) -> Tuple[int, int, int, int, Block0Params]:
+    """Raise on a frame or block that the block-0 kernels do not take
+    (device, one of ``dtypes``, shape, contiguity, width, the weights'
+    device); ``name`` heads the messages.  Returns (B, F, T_z, C, the
+    folded weights)."""
     if z.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {z.device}")
     if z.dtype not in dtypes:
@@ -147,6 +179,20 @@ def launch_block0(name: str, z: torch.Tensor, block: torch.nn.Module,
     if p.w1.device != z.device:
         raise TypeError(f"{name}: the block's weights must be on z's "
                         "device")
+    return b, f_out, t_z, c, p
+
+
+def launch_block0(name: str, z: torch.Tensor, block: torch.nn.Module,
+                  defines: Optional[Mapping[str, object]] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  dtypes: Tuple[torch.dtype, ...] = tuple(fe._DTYPES)
+                  ) -> torch.Tensor:
+    """Check a CUDA call of the block-0 kernel of ``csrc/fused_block0.cu``
+    and launch it: the frame (B, F + 2, T_z + 2) -> (B, C, F, T_z // 3).
+    ``defines`` picks a compile-time variant of the source and ``bias``
+    replaces ``fold_block0``'s (``ops.block0_variants`` passes both);
+    ``dtypes`` are the frame types the build takes."""
+    b, f_out, t_z, c, p = check_frame(name, z, block, dtypes)
     if bias is not None:
         p = p._replace(bias=bias)
 
@@ -167,24 +213,57 @@ def launch_block0(name: str, z: torch.Tensor, block: torch.nn.Module,
     return out
 
 
+def fused_block0_fma(z: torch.Tensor, block: torch.nn.Module
+                     ) -> torch.Tensor:
+    """Block 0 with conv2 on the CUDA cores (``csrc/fused_block0.cu``,
+    ``block0_fma_kernel``), float32 only.  Arguments and output as
+    ``fused_block0``.  Every launch adds one to
+    ``fused_block0_fma.launches``."""
+    _check_block0(block, "fused_block0_fma")
+    if z.device.type == "cpu":
+        return fused_block0_reference(z, block)
+    out = launch_block0("fused_block0_fma", z, block,
+                        dtypes=(torch.float32,))
+    fused_block0_fma.launches += 1
+    return out
+
+
+def fused_block0_mma(z: torch.Tensor, block: torch.nn.Module
+                     ) -> torch.Tensor:
+    """The older bf16 block-0 kernel, its phases one after another
+    (``csrc/fused_block0.cu``, ``block0_tc_kernel``), bfloat16 only.
+    Arguments and output as ``fused_block0``.  Every launch adds one to
+    ``fused_block0_mma.launches``."""
+    _check_block0(block, "fused_block0_mma")
+    if z.device.type == "cpu":
+        return fused_block0_reference(z, block)
+    out = launch_block0("fused_block0_mma", z, block,
+                        dtypes=(torch.bfloat16,))
+    fused_block0_mma.launches += 1
+    return out
+
+
 def fused_block0(z: torch.Tensor, block: torch.nn.Module) -> torch.Tensor:
     """Residual block 0 (eval) on the zero-bordered frame that
     ``fused_frontend_padded`` writes: (B, F + 2, T_z + 2) ->
     (B, C, F, T_z // 3), in ``z``'s dtype.
 
     ``block`` is a ``models.layers.ResidualBlock`` from 1 to C channels
-    with a downsample; the kernel takes C = 32.  Every launch adds one to
-    ``fused_block0.launches``.
+    with a downsample; the kernels take C = 32.  bfloat16 CUDA frames run
+    ``block0_pipe``, anything else on a device ``fused_block0_fma`` (module
+    docstring); the kernel's wrapper counts the launch.
     """
     _check_block0(block, "fused_block0")
     if z.device.type == "cpu":
         return fused_block0_reference(z, block)
-    out = launch_block0("fused_block0", z, block)
-    fused_block0.launches += 1
-    return out
+    if z.device.type == "cuda" and z.dtype == torch.bfloat16:
+        from aasist_tpu_torch.ops.block0_pipe import block0_pipe
+        return block0_pipe(z, block)
+    return fused_block0_fma(z, block)
 
 
-fused_block0.launches = 0
+fused_block0_fma.launches = 0
+fused_block0_mma.launches = 0
 
 
 def fused_frontend_block0(x: torch.Tensor, bank: torch.Tensor,

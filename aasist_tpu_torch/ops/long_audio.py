@@ -8,9 +8,11 @@ scored, and audio shorter than the window is tile-repeated as in eval.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
+
+from aasist_tpu_torch.utils.dispatch import pipelined
 
 WINDOW = 64600
 
@@ -36,7 +38,8 @@ def make_windows(x: np.ndarray, window: int = WINDOW,
 
 def score_long_audio(
     waveforms: Sequence[np.ndarray],
-    batched_scorer: Callable[[np.ndarray], np.ndarray],
+    dispatch: Callable[[np.ndarray], Any],
+    drain: Callable[[Any], np.ndarray],
     *,
     window: int = WINDOW,
     hop: int = WINDOW // 2,
@@ -45,9 +48,13 @@ def score_long_audio(
 ) -> List[float]:
     """Score utterances of any length.
 
-    ``batched_scorer`` maps (batch_size, window) float32 rows to (batch_size,)
-    scores.  Windows of all utterances are packed into full batches, the
-    last one padded by repeating its last row.
+    ``dispatch`` queues the scoring of (batch_size, window) float32 rows and
+    returns a ticket; ``drain`` waits for a ticket and returns its
+    batch_size scores (the Scorer passes its two steps; a synchronous
+    scorer passes itself and ``np.asarray``).  Windows of all utterances
+    are packed into fixed-size batches, the tail batch padded by repeating
+    its last row, as the reference does, so the scorer sees one shape.
+    Calls are pipelined two deep (``utils/dispatch.py``).
     """
     agg = {"mean": np.mean, "max": np.max, "min": np.min}[aggregate]
     all_windows = []
@@ -59,11 +66,19 @@ def score_long_audio(
     windows = np.stack(all_windows).astype(np.float32)
 
     scores = np.empty(len(windows), np.float64)
-    for i in range(0, len(windows), batch_size):
+
+    def dispatch_batch(i):
         chunk = windows[i:i + batch_size]
         n = len(chunk)
         if n < batch_size:
             chunk = np.concatenate(
                 [chunk, np.repeat(chunk[-1:], batch_size - n, axis=0)])
-        scores[i:i + n] = np.asarray(batched_scorer(chunk))[:n]
+        return dispatch(chunk), i, n
+
+    def drain_batch(ticket):
+        out, i, n = ticket
+        scores[i:i + n] = np.asarray(drain(out))[:n]
+
+    pipelined(range(0, len(windows), batch_size), dispatch_batch,
+              drain_batch)
     return [float(agg(scores[a:b])) for a, b in spans]

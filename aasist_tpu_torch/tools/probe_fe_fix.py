@@ -14,7 +14,8 @@ what does the filter-major layout's transpose cost.  It prints:
       to 2e-2 absolute plus 2e-2 relative), and against v1;
   (b) frontend + block 0 (the stock ``ResidualBlock``: cuDNN convs, BN,
       SELU, pool) + sum, timed with CUDA events for
-        v1      ``fused_frontend`` (contiguous (B, 1, 23, T)),
+        v1      ``fused_frontend_fma``, the CUDA-core kernel (contiguous
+                (B, 1, 23, T)),
         dot_bm  ``fused_frontend_dot_bm``, passed as the strided view,
         dot_fm  ``fused_frontend_dot_fm`` after ``permute`` + ``contiguous``,
       and block 0 alone on the contiguous tensor and on the view;
@@ -45,7 +46,7 @@ def main(argv=None) -> int:
 
     from aasist_tpu_torch.ops import frontend_variants as fv
     from aasist_tpu_torch.ops.fused_frontend import (
-        fused_frontend, fused_frontend_reference)
+        fused_frontend_fma, fused_frontend_reference)
 
     card = _common.card_line()
     model, bank, bn_p, bn_s = _common.pretrained(torch.bfloat16)
@@ -60,7 +61,7 @@ def main(argv=None) -> int:
         got = fv.fused_frontend_dot_bm(xs, bank, bn_p, bn_s)
         got = got[:, None, :f_out].float()
         err = (got - ref).abs().max().item()
-        d_v1 = (got - fused_frontend(xs, bank, bn_p, bn_s).float()
+        d_v1 = (got - fused_frontend_fma(xs, bank, bn_p, bn_s).float()
                 ).abs().max().item()
         print(f"dot_bm err vs the plain frontend, (8, {LENGTH}): {err:.3e} "
               f"(max |plain| {ref.abs().max().item():.3e}); vs v1 "
@@ -77,7 +78,7 @@ def main(argv=None) -> int:
         view = lambda: fv.fused_frontend_dot_bm(
             x, bank, bn_p, bn_s)[:, None, :f_out]
         chains = {
-            "v1": lambda: block(fused_frontend(x, bank, bn_p, bn_s)).sum(),
+            "v1": lambda: block(fused_frontend_fma(x, bank, bn_p, bn_s)).sum(),
             "dot_bm": lambda: block(view()).sum(),
             "dot_fm": lambda: block(fv.fused_frontend_dot_fm(
                 x, bank, bn_p, bn_s).permute(1, 0, 2)[:, None, :f_out]

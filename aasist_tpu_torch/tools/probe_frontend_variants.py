@@ -5,7 +5,7 @@
 Counterpart of ``tools/probe_frontend_variants.py``.  At B = 256 and
 B = 128, L = 64,600, bfloat16, with CUDA events:
 
-  v1      ``ops.fused_frontend.fused_frontend``: the conv on the CUDA cores;
+  v1      ``ops.fused_frontend.fused_frontend_fma``: the conv on the CUDA cores;
   dot_fm  ``ops.frontend_variants.fused_frontend_dot_fm``: the conv on the
           tensor cores, filter-major store (24, B, T);
   dot_bm  the same kernel, batch-major store (B, 24, T);
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     from aasist_tpu_torch.models.layers import sinc_filterbank
     from aasist_tpu_torch.ops import frontend_variants as fv
     from aasist_tpu_torch.ops.fused_frontend import (
-        fused_frontend, fused_frontend_reference)
+        fused_frontend_fma, fused_frontend_reference)
 
     card = _common.card_line()
     dev, dt = "cuda", torch.bfloat16
@@ -52,7 +52,7 @@ def main(argv=None) -> int:
     one = lambda v: torch.tensor([v], device=dev, dtype=dt)
     bn_p, bn_s = ({"weight": one(1.0), "bias": one(0.1)},
                   {"mean": one(0.0), "var": one(1.0)})
-    variants = {"v1": (fused_frontend, None),
+    variants = {"v1": (fused_frontend_fma, None),
                 "dot_fm": (fv.fused_frontend_dot_fm, fv.ROWS),
                 "dot_bm": (fv.fused_frontend_dot_bm, fv.ROWS),
                 "plain": (fused_frontend_reference, None)}

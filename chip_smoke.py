@@ -5,34 +5,47 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the seven CUDA sources from csrc/ and the seventeen variants of
-     fused_block0.cu with nvcc, all at once;
+  2. build the eight CUDA sources from csrc/, the eighteen variants of
+     fused_block0.cu (its timer build among them) and the four of
+     block0_pipe.cu (timer, three timing cuts) with nvcc, all at once;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
-     L = 16001 (the sinc frontend on a freq-masked bank there): the fused
-     frontend, then the padded frontend and block 0 of the frontend +
-     block-0 pair, then the tensor-core frontend in its two store layouts
-     (bfloat16 only, also at the probes' B = 256) and the frontend +
-     block-0 head; kernel, plain and cuDNN-chain times beside each
-     kernel's bound; then every variant of the block-0 kernel (construct
-     sets, stages, cast ladder; bfloat16) and the tail kernels (three pools,
-     SELU + layout change; both types, one size with ragged tiles); then
-     the step-cost kernel in its six modes at B = 128, T = 7168 and at a
-     ragged geometry, and the chained-dot kernel at the twelve dot shapes
-     at a visible eps, each with a planted fault its gate must tell;
-  4. the main paths, each with its launch counts reset just before and read
-     just after: Scorer.from_config("configs/AASIST.conf") with the
-     pretrained weights (fused frontend) serves 5 requests of 1-6 s, then
-     131 (one full and one ragged batch of 128); a Scorer with
-     use_fused_stack=True serves the same requests.  Their scores are
-     checked against an f32 scorer without kernels; on the golden's input,
+     L = 16001 (the sinc frontend on a freq-masked bank there): the
+     frontend, the CUDA-core kernel in both types and the tensor-core
+     kernel's plain store in bf16; the padded frontend likewise, then block
+     0 on its frame (the CUDA-core kernel in f32; in bf16 the older kernel
+     and the warp-specialised one, with both kernels' phase times from
+     their timer builds and the new one's timing cuts; the two bf16
+     kernels must agree bit for bit, also on frames of two and three
+     bands); kernel times in turns beside plain, cuDNN-chain and bound;
+     then the tensor-core
+     frontend in its two probe layouts (bfloat16 only, also at the probes'
+     B = 256) and the frontend + block-0 head; then every variant of the
+     block-0 kernel (construct sets, stages, cast ladder; bfloat16) and the
+     tail kernels (three pools, SELU + layout change; both types, one size
+     with ragged tiles); then the step-cost kernel in its six modes at
+     B = 128, T = 7168 and at a ragged geometry, and the chained-dot kernel
+     at the twelve dot shapes at a visible eps, each with a planted fault
+     its gate must tell;
+  4. the main paths, each with every kernel wrapper's launch count reset
+     just before and read just after, and checked: Scorer.from_config(
+     "configs/AASIST.conf") with the pretrained weights (bf16, the
+     tensor-core frontend) serves 5 requests of 1-6 s, then 131 (one full
+     and one ragged batch of 128), pipelined two batches deep; a Scorer
+     with use_fused_stack=True serves the same requests with the new block
+     0, then with the older one; f32 Scorers without kernels, with the
+     CUDA-core frontend and with the CUDA-core pair.  bf16 scores are
+     checked against the f32 ones without kernels; on the golden's input,
      f32 logits with each kernel path on and off, f32 against the reference
      golden, and bf16 against f32;
-  5. Scorer throughput at batch 128 in bf16 with the stack on, with the
-     frontend kernel only, and with both off, and torch.profiler breakdowns
-     of one such batch by CUDA kernel with the frontend kernel and with the
-     stack (printed, not gated; the whole tables go to
-     chiprun_out/profile_bf16_b128.txt and profile_bf16_b128_stack.txt);
+  5. Scorer throughput at batch 128 in bf16 over 640 requests, pipelined
+     and a batch a call, and on padded rows a batch a call, with the stack
+     on (new and older block 0),
+     with the frontend kernel only, and with both off, the device forward
+     alone, and torch.profiler breakdowns of one such batch by CUDA kernel
+     with the frontend kernel and with the stack (printed, not gated; the
+     whole tables go to chiprun_out/profile_bf16_b128.txt and
+     profile_bf16_b128_stack.txt);
   6. the nine probes through their entry points
      (aasist_tpu_torch.tools.probe_frontend_variants, probe_fe_fix,
      probe_feb0_ablate, probe_b0_constructs, probe_b0_ablate, probe_b0_epi,
@@ -182,13 +195,16 @@ def main() -> int:
     from aasist_tpu_torch.ops import tail_constructs as tc
     from aasist_tpu_torch.ops.frontend_head import (
         fused_frontend_head, fused_frontend_head_reference)
+    from aasist_tpu_torch.ops import block0_pipe as bp
     from aasist_tpu_torch.ops.frontend_variants import (
         fused_frontend_dot_bm, fused_frontend_dot_bm_reference,
-        fused_frontend_dot_fm, fused_frontend_dot_fm_reference)
+        fused_frontend_dot_fm, fused_frontend_dot_fm_reference,
+        fused_frontend_dot_padded, fused_frontend_dot_plain)
     from aasist_tpu_torch.ops.fused_frontend import (
-        fused_frontend, fused_frontend_reference)
+        fused_frontend_fma, fused_frontend_reference)
     from aasist_tpu_torch.ops.fused_stack import (
-        fused_block0, fused_block0_reference, fused_frontend_padded,
+        fused_block0_fma, fused_block0_mma, fused_block0_reference,
+        fused_frontend_padded, fused_frontend_padded_fma,
         fused_frontend_padded_reference)
     from aasist_tpu_torch.registry import build_model
     from aasist_tpu_torch.serving import Scorer
@@ -223,13 +239,17 @@ def main() -> int:
               + [bv.epi_defines(v) for v in bv.EPI_VARIANTS]
               + [bv.cut_defines(c) for c in bv.CUTS]):
         variants[json.dumps(d, sort_keys=True)] = d
+    variants[json.dumps(bp.TIMER_DEFINES)] = bp.TIMER_DEFINES
     entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
                                    "frontend_head", "tail_constructs",
-                                   "stepcost", "mma_shapes")]
+                                   "stepcost", "mma_shapes", "block0_pipe")]
+    entries += [("block0_pipe", bp.TIMER_DEFINES)]
+    entries += [("block0_pipe", {"B0P_CUT": c}) for c in bp.PIPE_CUTS.values()]
     entries += [("fused_block0", d) for d in variants.values()]
     libs = _build.load_all(entries)
     print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
-          f"fused_block0.cu): {time.perf_counter() - t0:.1f} s")
+          f"fused_block0.cu, {2 + len(bp.PIPE_CUTS)} of block0_pipe.cu): "
+          f"{time.perf_counter() - t0:.1f} s")
     for (_, defines), lib in zip(entries, libs):
         print(f"[build] {lib.path.name} {defines or ''}: nvcc "
               f"{lib.build_seconds:.1f} s")
@@ -257,7 +277,10 @@ def main() -> int:
         return F.selu(h)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {}
+    # the CUDA-core frontend (both types) and, in bf16, the tensor-core
+    # frontend's plain store, each against the plain version
+    results = {}                       # fused_frontend_fma
+    dot_plain_results = {}             # fused_frontend_dot_plain
     cases = [("float32", 128, 64600, False), ("bfloat16", 128, 64600, False),
              ("float32", 3, 16001, True), ("bfloat16", 3, 16001, True)]
     for dname, b, length, masked in cases:
@@ -268,116 +291,237 @@ def main() -> int:
         if masked:
             bank[10:20] = 0
         bn_p, bn_s = bn_dicts(dtype)
-        got = fused_frontend(x, bank, bn_p, bn_s)
-        torch.cuda.synchronize()
         ref = fused_frontend_reference(x, bank, bn_p, bn_s)
         shape = (b, 1, 23, (length - 128) // 3)
-        check(tuple(got.shape) == shape and got.dtype == dtype,
-              f"kernel output {tuple(got.shape)} {got.dtype}, want {shape}")
-        check(bool(torch.isfinite(got).all()), "kernel output not finite")
         tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
-        err = (got.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(got.float(), ref.float(), **tol)
         tag = f"{dname} B={b} L={length}{' masked' if masked else ''}"
-        print(f"[kernel] fused_frontend {tag}: max|kernel-plain| = {err:.3e}"
-              f" (atol {tol['atol']}, rtol {tol['rtol']})")
-        check(ok, f"fused_frontend disagrees with its plain version, {tag}")
+        kernels_here = [("fused_frontend_fma", fused_frontend_fma, results)]
+        if dname == "bfloat16":
+            kernels_here.append(("fused_frontend_dot_plain",
+                                 fused_frontend_dot_plain, dot_plain_results))
+        outs = {}
+        for kname, fn, store in kernels_here:
+            got = fn(x, bank, bn_p, bn_s)
+            torch.cuda.synchronize()
+            check(tuple(got.shape) == shape and got.dtype == dtype,
+                  f"{kname} output {tuple(got.shape)} {got.dtype}, want "
+                  f"{shape}")
+            check(bool(torch.isfinite(got).all()), f"{kname} not finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            print(f"[kernel] {kname} {tag}: max|kernel-plain| = {err:.3e}"
+                  f" (atol {tol['atol']}, rtol {tol['rtol']})")
+            check(torch.allclose(got.float(), ref.float(), **tol),
+                  f"{kname} disagrees with its plain version, {tag}")
+            outs[kname] = got
+            if b == 128:
+                store[dname] = dict(max_abs_err=err)
+        if len(outs) == 2:
+            d = (outs["fused_frontend_fma"].float()
+                 - outs["fused_frontend_dot_plain"].float()).abs().max()
+            print(f"[kernel] {tag}: max|tensor-core - CUDA-core frontend| "
+                  f"= {d.item():.3e} (not gated)")
+        del outs, got
         if b == 128:
-            iters = 20
-            ms = cuda_ms(lambda: fused_frontend(x, bank, bn_p, bn_s), iters)
             plain = cuda_ms(
                 lambda: fused_frontend_reference(x, bank, bn_p, bn_s), 10)
             libms = cuda_ms(lambda: library_chain(x, bank, bn_p, bn_s), 10)
             bound, by = frontend_bound(b, length, 70, dname)
-            results[dname] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                  library_ms=libms, bound_ms=bound,
-                                  bound_by=by)
-            print(f"[kernel] fused_frontend {tag}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by})  [{card}]")
-        del x, got, ref
+            # in turns: each kernel timed twice, the second time in reverse
+            # order
+            runs = {k: [] for k, _, _ in kernels_here}
+            for kname, fn, _ in kernels_here + kernels_here[::-1]:
+                runs[kname].append(
+                    cuda_ms(lambda: fn(x, bank, bn_p, bn_s), 20))
+            for kname, fn, store in kernels_here:
+                ms = float(np.mean(runs[kname]))
+                store[dname].update(ms=ms, plain_ms=plain, library_ms=libms,
+                                    bound_ms=bound, bound_by=by)
+                print(f"[kernel] {kname} {tag}: kernel {ms:.4f} ms (runs "
+                      f"{[round(v, 4) for v in runs[kname]]}), plain "
+                      f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by})  [{card}]")
+        del x, ref
     torch.cuda.empty_cache()
 
     # the frontend + block-0 pair; block 0's plain version is its cuDNN
-    # chain (conv1, BN, SELU, conv2, downsample, add, max_pool2d)
-    stack_results = {}
+    # chain (conv1, BN, SELU, conv2, downsample, add, max_pool2d).  The
+    # padded frontend: the CUDA-core kernel in both types, the tensor-core
+    # one in bf16; block 0: the CUDA-core kernel in f32, in bf16 the older
+    # kernel and the warp-specialised one, on the bf16 frame of the
+    # tensor-core frontend.  Times in turns (old, new, new, old).
+    stack_results = {"float32": {}, "bfloat16": {}}
+    phases = {}
     for dname, b, length in [("float32", 128, 64600),
                              ("bfloat16", 128, 64600),
                              ("float32", 3, 16001), ("bfloat16", 3, 16001)]:
         dtype = getattr(torch, dname)
+        bf16 = dname == "bfloat16"
         tag = f"{dname} B={b} L={length}"
         x = (torch.randn((b, length), generator=gen, device="cuda")
              * 0.1).to(dtype)
         bank = model32.filterbank.detach().to("cuda", dtype)
         bn_p, bn_s = bn_dicts(dtype)
         block = copy.deepcopy(model32.encoder[0]).to("cuda", dtype)
+        res = stack_results[dname] if b == 128 else {}
         with torch.inference_mode():
-            z = fused_frontend_padded(x, bank, bn_p, bn_s)
-            torch.cuda.synchronize()
             zr = fused_frontend_padded_reference(x, bank, bn_p, bn_s)
             shape = (b, 25, (length - 128) // 3 + 2)
-            check(tuple(z.shape) == shape and z.dtype == dtype,
-                  f"padded frontend output {tuple(z.shape)} {z.dtype}, "
-                  f"want {shape}")
-            border = torch.cat([z[:, 0], z[:, -1]], 1).abs().max().item() + \
-                torch.cat([z[:, :, 0], z[:, :, -1]], 1).abs().max().item()
-            check(border == 0, f"padded frontend border not zero, {tag}")
             tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
-            err_z = (z.float() - zr.float()).abs().max().item()
-            print(f"[kernel] fused_frontend_padded {tag}: max|kernel-plain| "
-                  f"= {err_z:.3e} (atol {tol['atol']}, rtol {tol['rtol']}),"
-                  f" border exactly 0")
-            check(torch.allclose(z.float(), zr.float(), **tol),
-                  f"fused_frontend_padded disagrees with its plain version, "
-                  f"{tag}")
+            fe_kernels = [("fused_frontend_padded", fused_frontend_padded_fma)]
+            if bf16:
+                fe_kernels.append(("fused_frontend_dot_padded",
+                                   fused_frontend_dot_padded))
+            frames = {}
+            for kname, fn in fe_kernels:
+                z = fn(x, bank, bn_p, bn_s)
+                torch.cuda.synchronize()
+                check(tuple(z.shape) == shape and z.dtype == dtype,
+                      f"{kname} output {tuple(z.shape)} {z.dtype}, want "
+                      f"{shape}")
+                border = (torch.cat([z[:, 0], z[:, -1]], 1).abs().max()
+                          .item() + torch.cat([z[:, :, 0], z[:, :, -1]], 1)
+                          .abs().max().item())
+                check(border == 0, f"{kname} border not zero, {tag}")
+                err_z = (z.float() - zr.float()).abs().max().item()
+                print(f"[kernel] {kname} {tag}: max|kernel-plain| = "
+                      f"{err_z:.3e} (atol {tol['atol']}, rtol "
+                      f"{tol['rtol']}), border exactly 0")
+                check(torch.allclose(z.float(), zr.float(), **tol),
+                      f"{kname} disagrees with its plain version, {tag}")
+                frames[kname] = z
+                res[kname] = dict(max_abs_err=err_z)
             del zr
+            z = frames[fe_kernels[-1][0]]     # the frame the Scorer reads
+            del frames
 
-            out = fused_block0(z, block)
-            torch.cuda.synchronize()
             ref = fused_block0_reference(z, block)
+            top = ref.float().abs().max().item()
             shape = (b, 32, 23, (length - 128) // 9)
-            check(tuple(out.shape) == shape and out.dtype == dtype,
-                  f"block-0 output {tuple(out.shape)} {out.dtype}, want "
-                  f"{shape}")
-            check(bool(torch.isfinite(out).all()), "block-0 output not "
-                  "finite")
-            err_b = (out.float() - ref.float()).abs().max().item()
-            rel_b = err_b / ref.float().abs().max().item()
-            print(f"[kernel] fused_block0 {tag}: max|kernel-plain| = "
-                  f"{err_b:.3e}, / max|plain| = {rel_b:.3e} (gate "
-                  f"{TOL_BLOCK0[dname]})")
-            check(rel_b <= TOL_BLOCK0[dname],
-                  f"fused_block0 disagrees with its plain version, {tag}")
-            del out, ref
+            b0_kernels = ([("fused_block0", fused_block0_mma),
+                           ("block0_pipe", bp.block0_pipe)] if bf16
+                          else [("fused_block0", fused_block0_fma)])
+            outs = {}
+            for kname, fn in b0_kernels:
+                out = fn(z, block)
+                torch.cuda.synchronize()
+                check(tuple(out.shape) == shape and out.dtype == dtype,
+                      f"{kname} output {tuple(out.shape)} {out.dtype}, want "
+                      f"{shape}")
+                check(bool(torch.isfinite(out).all()),
+                      f"{kname} output not finite")
+                err_b = (out.float() - ref.float()).abs().max().item()
+                print(f"[kernel] {kname} {tag}: max|kernel-plain| = "
+                      f"{err_b:.3e}, / max|plain| = {err_b / top:.3e} (gate "
+                      f"{TOL_BLOCK0[dname]})")
+                check(err_b / top <= TOL_BLOCK0[dname],
+                      f"{kname} disagrees with its plain version, {tag}")
+                outs[kname] = out
+                res[kname] = dict(max_abs_err=err_b, max_rel_err=err_b / top)
+            del ref
+            if bf16:
+                same = (outs["fused_block0"].float()
+                        - outs["block0_pipe"].float()).abs().max().item()
+                print(f"[kernel] {tag}: max|block0_pipe - fused_block0| = "
+                      f"{same:.3e} (the same function, gate 0)")
+                check(same == 0, f"the two bf16 block-0 kernels differ, "
+                      f"{tag}")
+                timed, phases_new = bp.block0_timed(z, block, "pipe")
+                torch.cuda.synchronize()
+                check(torch.equal(timed, outs["block0_pipe"]),
+                      f"block0_pipe's timer build changed its output, {tag}")
+                timed, phases_old = bp.block0_timed(z, block, "mma")
+                torch.cuda.synchronize()
+                check(torch.equal(timed, outs["fused_block0"]),
+                      f"fused_block0's timer build changed its output, {tag}")
+                del timed
+                if b == 128:
+                    phases = {"block0_pipe": phases_new,
+                              "fused_block0": phases_old}
+                for kname, ph in (("block0_pipe", phases_new),
+                                  ("fused_block0", phases_old)):
+                    print(f"[phases] {kname} {tag}: one launch, per CTA: "
+                          f"life {ph['cta']:.4f} ms, clock "
+                          f"{ph['clock_ghz']:.3f} GHz  [{card}]")
+                    for name, ms in ph.items():
+                        if name not in ("cta", "clock_ghz"):
+                            print(f"[phases]   {ms:8.4f} ms  {name}")
+            del outs
             if b == 128:
-                ms_z = cuda_ms(
-                    lambda: fused_frontend_padded(x, bank, bn_p, bn_s), 20)
                 plain_z = cuda_ms(lambda: fused_frontend_padded_reference(
                     x, bank, bn_p, bn_s), 10)
                 lib_z = cuda_ms(lambda: F.pad(library_chain(
                     x, bank, bn_p, bn_s)[:, 0], (1, 1, 1, 1)), 10)
                 bound_z, by_z = frontend_bound(b, length, 70, dname,
                                                padded=True)
-                ms_b = cuda_ms(lambda: fused_block0(z, block), 10)
+                runs = {k: [] for k, _ in fe_kernels}
+                for kname, fn in fe_kernels + fe_kernels[::-1]:
+                    runs[kname].append(
+                        cuda_ms(lambda: fn(x, bank, bn_p, bn_s), 20))
+                for kname, _ in fe_kernels:
+                    ms = float(np.mean(runs[kname]))
+                    res[kname].update(ms=ms, plain_ms=plain_z,
+                                      library_ms=lib_z, bound_ms=bound_z,
+                                      bound_by=by_z)
+                    print(f"[kernel] {kname} {tag}: kernel {ms:.4f} ms (runs "
+                          f"{[round(v, 4) for v in runs[kname]]}), plain "
+                          f"{plain_z:.4f} ms, cuDNN chain {lib_z:.4f} ms, "
+                          f"bound {bound_z:.4f} ms ({by_z})  [{card}]")
                 plain_b = cuda_ms(lambda: fused_block0_reference(z, block), 5)
                 bound_b, by_b = block0_bound(b, length, 32, dname)
-                stack_results[dname] = {
-                    "fused_frontend_padded": dict(
-                        max_abs_err=err_z, ms=ms_z, plain_ms=plain_z,
-                        library_ms=lib_z, bound_ms=bound_z, bound_by=by_z),
-                    "fused_block0": dict(
-                        max_abs_err=err_b, max_rel_err=rel_b, ms=ms_b,
-                        plain_ms=plain_b, library_ms=plain_b,
-                        bound_ms=bound_b, bound_by=by_b)}
-                print(f"[kernel] fused_frontend_padded {tag}: kernel "
-                      f"{ms_z:.4f} ms, plain {plain_z:.4f} ms, cuDNN chain "
-                      f"{lib_z:.4f} ms, bound {bound_z:.4f} ms ({by_z})  "
-                      f"[{card}]")
-                print(f"[kernel] fused_block0 {tag}: kernel {ms_b:.4f} ms, "
-                      f"plain (= the cuDNN chain) {plain_b:.4f} ms, bound "
-                      f"{bound_b:.4f} ms ({by_b})  [{card}]")
+                runs = {k: [] for k, _ in b0_kernels}
+                for kname, fn in b0_kernels + b0_kernels[::-1]:
+                    runs[kname].append(cuda_ms(lambda: fn(z, block), 10))
+                for kname, _ in b0_kernels:
+                    ms = float(np.mean(runs[kname]))
+                    res[kname].update(ms=ms, plain_ms=plain_b,
+                                      library_ms=plain_b, bound_ms=bound_b,
+                                      bound_by=by_b)
+                    print(f"[kernel] {kname} {tag}: kernel {ms:.4f} ms (runs "
+                          f"{[round(v, 4) for v in runs[kname]]}), plain (= "
+                          f"the cuDNN chain) {plain_b:.4f} ms, bound "
+                          f"{bound_b:.4f} ms ({by_b})  [{card}]")
+                if bf16:
+                    cuts = {}
+                    for cut in bp.PIPE_CUTS:
+                        cuts[cut] = cuda_ms(
+                            lambda: bp.block0_pipe_cut(z, block, cut), 10)
+                    res["block0_pipe"]["cuts_ms"] = cuts
+                    print(f"[kernel] block0_pipe {tag}: timing cuts "
+                          f"{ {k: round(v, 4) for k, v in cuts.items()} } "
+                          f"(ms; the skeleton's bound is "
+                          f"{stage_bound('dma', b, length, 32, dname)[0]:.4f}"
+                          f" ms, bytes)  [{card}]")
         del x, z, block
         torch.cuda.empty_cache()
+
+    # block 0 in bands: frames of F = 30 and 47 rows (two and three bands
+    # of block0_pipe's 23 rows; the model's F is 23), seeded noise inside a
+    # zero border, both bf16 kernels against the plain version
+    block = copy.deepcopy(model32.encoder[0]).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        for b, f, t in [(2, 30, 300), (3, 47, 1001)]:
+            z = torch.zeros((b, f + 2, t + 2), device="cuda",
+                            dtype=torch.bfloat16)
+            z[:, 1:-1, 1:-1] = torch.randn((b, f, t), generator=gen,
+                                           device="cuda").bfloat16()
+            ref = fused_block0_reference(z, block)
+            top = ref.float().abs().max().item()
+            outs = {}
+            for kname, fn in (("fused_block0", fused_block0_mma),
+                              ("block0_pipe", bp.block0_pipe)):
+                out = fn(z, block)
+                torch.cuda.synchronize()
+                rel = (out.float() - ref.float()).abs().max().item() / top
+                print(f"[kernel] {kname} bfloat16 frame F={f} T_z={t} "
+                      f"B={b}: max|kernel-plain| / max|plain| = {rel:.3e} "
+                      f"(gate {TOL_BLOCK0['bfloat16']})")
+                check(tuple(out.shape) == (b, 32, f, t // 3)
+                      and rel <= TOL_BLOCK0["bfloat16"],
+                      f"{kname} disagrees with its plain version, F={f}")
+                outs[kname] = out
+            check(torch.equal(outs["fused_block0"], outs["block0_pipe"]),
+                  f"the two bf16 block-0 kernels differ at F={f}")
+    del block, z, ref, outs
 
     # the frontend on the tensor cores, in its two store layouts (bf16 only)
     dots = {"fused_frontend_dot_fm": (fused_frontend_dot_fm,
@@ -395,7 +539,7 @@ def main() -> int:
             bank[10:20] = 0
         bn_p, bn_s = bn_dicts(torch.bfloat16)
         t_out = (length - 128) // 3
-        v1 = fused_frontend(x, bank, bn_p, bn_s)[:, 0]
+        v1 = fused_frontend_fma(x, bank, bn_p, bn_s)[:, 0]
         for name, (fn, ref_fn, row_axis) in dots.items():
             got = fn(x, bank, bn_p, bn_s)
             torch.cuda.synchronize()
@@ -416,7 +560,8 @@ def main() -> int:
             print(f"[kernel] {name} {tag}: max|kernel-plain| = {err:.3e} "
                   f"(atol {TOL_BF16_KERNEL['atol']}, rtol "
                   f"{TOL_BF16_KERNEL['rtol']}), row 23 exactly 0; "
-                  f"max|kernel - fused_frontend| = {d_v1:.3e} (not gated)")
+                  f"max|kernel - fused_frontend_fma| = {d_v1:.3e} (not "
+                  "gated)")
             check(torch.allclose(got.float(), ref.float(), **TOL_BF16_KERNEL),
                   f"{name} disagrees with its plain version, {tag}")
             if b == 128:
@@ -732,6 +877,60 @@ def main() -> int:
                   f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']})  [{card}]")
 
     # ---------------------------------------------------------------- 4
+    # every kernel wrapper a Scorer path can reach (the routers in front of
+    # them count nothing); all counts are set to 0 just before each run and
+    # read just after it
+    path_kernels = {
+        "fused_frontend_dot_plain": fused_frontend_dot_plain,
+        "fused_frontend_dot_padded": fused_frontend_dot_padded,
+        "block0_pipe": bp.block0_pipe,
+        "fused_frontend_fma": fused_frontend_fma,
+        "fused_frontend_padded_fma": fused_frontend_padded_fma,
+        "fused_block0_mma": fused_block0_mma,
+        "fused_block0_fma": fused_block0_fma}
+
+    def older_block0(model, on):
+        """Run ``model``'s stack path with the older bf16 block-0 kernel
+        in place of block0_pipe (``on``), or as it is: an attribute of this
+        model instance over ``AASIST.fused_stack``, so that these runs can
+        tell what the new kernel saves from what its channels-last output
+        saves blocks 1-5."""
+        if not on:
+            model.__dict__.pop("fused_stack", None)
+            return
+        bn = model.first_bn
+
+        def fused_stack(x):
+            z = fused_frontend_padded(
+                x, model.filterbank, {"weight": bn.weight, "bias": bn.bias},
+                {"mean": bn.running_mean, "var": bn.running_var})
+            return fused_block0_mma(z, model.encoder[0])
+
+        model.fused_stack = fused_stack
+
+    def serve(scorer_, reqs, want, label):
+        """Score ``reqs`` through ``scorer_``'s pipelined path and check the
+        launch counts: ``want`` maps each kernel that must run to its count,
+        and every other kernel wrapper must not run."""
+        torch.cuda.synchronize()
+        for fn in path_kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = [scorer_.score_waveforms(r) for r in reqs]
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in path_kernels.items()}
+        print(f"[main] {label}: served {[len(s) for s in out]} requests in "
+              f"{n_batches} batches, {wall:.3f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for r, s in zip(reqs, out):
+            check(len(s) == len(r), f"{len(s)} scores for {len(r)} requests")
+            check(bool(np.isfinite(s).all()), f"{label}: non-finite scores")
+        for name, n in counts.items():
+            check(n == want.get(name, 0),
+                  f"{label}: {name} launched {n} times, want "
+                  f"{want.get(name, 0)} ({n_batches} batches)")
+        return out, counts
+
     scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
                                 weights_path=weights)
     check(scorer.device.type == "cuda" and scorer.model.use_fused_frontend,
@@ -744,51 +943,46 @@ def main() -> int:
                 for size in (5, 131)]
     n_batches = sum(-(-len(r) // scorer.batch_size) for r in requests)
 
-    torch.cuda.synchronize()
-    fused_frontend.launches = 0
-    t0 = time.perf_counter()
-    scores = [scorer.score_waveforms(r) for r in requests]
-    wall = time.perf_counter() - t0
-    launches = {"fused_frontend": fused_frontend.launches}
-    print(f"[main] served {[len(s) for s in scores]} requests in "
-          f"{n_batches} batches, {wall:.3f} s; launches {launches}")
-    for r, s in zip(requests, scores):
-        check(len(s) == len(r), f"{len(s)} scores for {len(r)} requests")
-        check(bool(np.isfinite(s).all()), "non-finite scores")
-    check(launches["fused_frontend"] == n_batches,
-          f"fused_frontend launched {launches['fused_frontend']} times for "
-          f"{n_batches} batches")
+    scores, launches = serve(scorer, requests, {
+        "fused_frontend_dot_plain": n_batches}, "bf16 default path")
 
-    # the frontend + block-0 pair's path, the same requests
+    # the frontend + block-0 pair's path, the same requests: with the
+    # warp-specialised block 0, then with the older kernel
     stack = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
                                weights_path=weights, use_fused_stack=True)
     check(stack.model.use_fused_stack, "Scorer(use_fused_stack=True)")
     stack.warmup()
-    torch.cuda.synchronize()
-    fused_frontend.launches = 0
-    fused_frontend_padded.launches = fused_block0.launches = 0
-    t0 = time.perf_counter()
-    stack_scores = [stack.score_waveforms(r) for r in requests]
-    wall = time.perf_counter() - t0
-    stack_launches = {"fused_frontend": fused_frontend.launches,
-                      "fused_frontend_padded": fused_frontend_padded.launches,
-                      "fused_block0": fused_block0.launches}
-    print(f"[main] stack: served {[len(s) for s in stack_scores]} requests "
-          f"in {n_batches} batches, {wall:.3f} s; launches {stack_launches}")
-    for r, s in zip(requests, stack_scores):
-        check(len(s) == len(r), f"{len(s)} scores for {len(r)} requests")
-        check(bool(np.isfinite(s).all()), "non-finite scores")
-    for name in ("fused_frontend_padded", "fused_block0"):
-        check(stack_launches[name] == n_batches,
-              f"{name} launched {stack_launches[name]} times for "
-              f"{n_batches} batches")
-    check(stack_launches["fused_frontend"] == 0,
-          "the stack path also launched the fused frontend")
+    stack_want = {"fused_frontend_dot_padded": n_batches}
+    stack_scores, stack_launches = serve(
+        stack, requests, {**stack_want, "block0_pipe": n_batches},
+        "bf16 stack path")
+    older_block0(stack.model, True)
+    old_scores, old_launches = serve(
+        stack, requests, {**stack_want, "fused_block0_mma": n_batches},
+        "bf16 stack path, the older block-0 kernel")
+    older_block0(stack.model, False)
+    d_old = max(np.abs(np.asarray(a) - np.asarray(b)).max()
+                for a, b in zip(stack_scores, old_scores))
+    print(f"[main] bf16 stack scores, block0_pipe vs fused_block0: max|d| = "
+          f"{d_old:.3e} (atol {TOL_BF16_LOGITS['atol']})")
+    check(d_old <= TOL_BF16_LOGITS["atol"],
+          "the two bf16 block-0 kernels' scores disagree")
 
     s32_off = Scorer(model32, bf16=False, use_fused_frontend=False)
     s32_on = Scorer(model32, bf16=False, use_fused_frontend=True)
     s32_stack = Scorer(model32, bf16=False, use_fused_stack=True)
-    ref_scores = [s32_off.score_waveforms(r) for r in requests]
+    ref_scores, _ = serve(s32_off, requests, {}, "f32, no kernels")
+    f32_scores, f32_launches = serve(s32_on, requests, {
+        "fused_frontend_fma": n_batches}, "f32 frontend kernel")
+    f32_stack_scores, f32_stack_launches = serve(s32_stack, requests, {
+        "fused_frontend_padded_fma": n_batches,
+        "fused_block0_fma": n_batches}, "f32 stack")
+    for tag, got_scores in (("f32 kernel", f32_scores),
+                            ("f32 stack", f32_stack_scores)):
+        err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
+                  for a, b in zip(got_scores, ref_scores))
+        print(f"[main] {tag} scores vs f32 unfused scores: max|d| = "
+              f"{err:.3e} (not gated; the golden gates below)")
     for tag, got_scores in (("kernel", scores), ("stack", stack_scores)):
         err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
                   for a, b in zip(got_scores, ref_scores))
@@ -826,34 +1020,61 @@ def main() -> int:
     del s32_on, s32_off, s32_stack, stack
 
     # ---------------------------------------------------------------- 5
+    # utt/s over 5 batches of 128 requests: through score_waveforms,
+    # pipelined two batches deep; the same requests a batch a call, so
+    # that each batch is drained before the next is sent (the same host
+    # work, padding included, and no overlap); and score_batch on rows
+    # already padded, a batch a call (the earlier PRs' measure); the
+    # device forward alone (CUDA events)
+    waves = requests[1][:128] * 5
     rows = np.stack([pad_to_fixed(w) for w in requests[1][:128]])
     xb = torch.from_numpy(rows).cuda()
-    # (use_fused_frontend, use_fused_stack) of each mode
-    modes = {"stack": (False, True), "frontend kernel": (True, False),
-             "both off": (False, False)}
+    # (use_fused_frontend, use_fused_stack, older_block0) of each mode; the
+    # stack with the older block-0 kernel separates what the new one saves
+    # from what its channels-last output saves the next blocks
+    modes = {"stack": (False, True, False),
+             "stack, older block 0": (False, True, True),
+             "frontend kernel": (True, False, False),
+             "both off": (False, False, False)}
+
+    def set_mode(mode):
+        (scorer.model.use_fused_frontend, scorer.model.use_fused_stack,
+         old) = modes[mode]
+        older_block0(scorer.model, old)
+
     thr = {m: [] for m in modes}
+    thr_serial = {m: [] for m in modes}
+    thr_rows = {m: [] for m in modes}
     fwd = {m: [] for m in modes}
-    for mode in ("stack", "frontend kernel", "both off", "both off",
-                 "frontend kernel", "stack"):
-        (scorer.model.use_fused_frontend,
-         scorer.model.use_fused_stack) = modes[mode]
-        scorer.score_batch(rows)
+    for mode in list(modes) + list(modes)[::-1]:
+        set_mode(mode)
+        scorer.score_waveforms(waves[:256])
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer.score_waveforms(waves)
+        thr[mode].append(len(waves) / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for i in range(0, len(waves), 128):
+            scorer.score_waveforms(waves[i:i + 128])
+        thr_serial[mode].append(len(waves) / (time.perf_counter() - t0))
         t0 = time.perf_counter()
         for _ in range(5):
             scorer.score_batch(rows)
-        thr[mode].append(5 * 128 / (time.perf_counter() - t0))
+        thr_rows[mode].append(5 * 128 / (time.perf_counter() - t0))
         with torch.inference_mode():
             fwd[mode].append(cuda_ms(lambda: scorer.model(xb), 5, warmup=1))
     for mode, fname in (("frontend kernel", "profile_bf16_b128.txt"),
                         ("stack", "profile_bf16_b128_stack.txt")):
-        (scorer.model.use_fused_frontend,
-         scorer.model.use_fused_stack) = modes[mode]
+        set_mode(mode)
         profile_forward(scorer.model, xb, card, mode, fname)
     for mode in modes:
-        print(f"[throughput] bf16 Scorer batch 128, {mode}: "
+        print(f"[throughput] bf16 Scorer batch 128, {mode}: pipelined "
               f"{np.mean(thr[mode]):.1f} utt/s (runs "
-              f"{[round(v, 1) for v in thr[mode]]}), forward "
+              f"{[round(v, 1) for v in thr[mode]]}), a batch a call "
+              f"{np.mean(thr_serial[mode]):.1f} utt/s (runs "
+              f"{[round(v, 1) for v in thr_serial[mode]]}), padded rows a "
+              f"batch a call {np.mean(thr_rows[mode]):.1f} utt/s (runs "
+              f"{[round(v, 1) for v in thr_rows[mode]]}), forward "
               f"{np.mean(fwd[mode]):.3f} ms/batch on the device  [{card}]")
 
     # ---------------------------------------------------------------- 6
@@ -903,29 +1124,53 @@ def main() -> int:
     print(f"[probe] launches {probe_launches}")
 
     # ---------------------------------------------------------------- 7
-    r16, r32 = results["bfloat16"], results["float32"]
-    kernels = [{
-        "name": "fused_frontend", "route": "cuda",
-        "source": "aasist_tpu_torch/csrc/fused_frontend.cu",
-        "replaces": "aasist_tpu/ops/fused_frontend.py:79",
-        "launches": launches["fused_frontend"],
-        "max_abs_err": r16["max_abs_err"], "ms": r16["ms"],
-        "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
-        "bound_by": r16["bound_by"], "library_ms": r16["library_ms"],
-        "dtype": "bfloat16", "shape": [128, 64600],
-        "float32": r32,
-    }]
-    replaces = {"fused_frontend_padded": ("fused_frontend",
-                                          "tools/fused_stack.py:180"),
-                "fused_block0": ("fused_block0", "tools/fused_stack.py:250")}
-    for name, (src, where) in replaces.items():
-        k16 = stack_results["bfloat16"][name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"aasist_tpu_torch/csrc/{src}.cu", "replaces": where,
-            "launches": stack_launches[name], **k16,
-            "dtype": "bfloat16", "shape": [128, 64600],
-            "float32": stack_results["float32"][name]})
+    # the Scorer's kernels: each entry's launches are those of the main-path
+    # run that takes it (phase 4: the bf16 paths for the new kernels and
+    # the older bf16 block 0, the f32 paths for the CUDA-core kernels, whose
+    # entries also carry their bf16 numbers, read in phase 3)
+    s16, s32 = stack_results["bfloat16"], stack_results["float32"]
+    kernels = [
+        {"name": "fused_frontend_dot_plain", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
+         "replaces": "aasist_tpu/ops/fused_frontend.py:79",
+         "launches": launches["fused_frontend_dot_plain"],
+         **dot_plain_results["bfloat16"], "dtype": "bfloat16",
+         "shape": [128, 64600], "path": "bf16 default"},
+        {"name": "fused_frontend_dot_padded", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
+         "replaces": "tools/fused_stack.py:180",
+         "launches": stack_launches["fused_frontend_dot_padded"],
+         **s16["fused_frontend_dot_padded"], "dtype": "bfloat16",
+         "shape": [128, 64600], "path": "bf16 stack"},
+        {"name": "block0_pipe", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/block0_pipe.cu",
+         "replaces": "tools/fused_stack.py:250",
+         "launches": stack_launches["block0_pipe"], **s16["block0_pipe"],
+         "phases_ms": phases.get("block0_pipe"), "dtype": "bfloat16",
+         "shape": [128, 64600], "path": "bf16 stack"},
+        {"name": "fused_frontend", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/fused_frontend.cu",
+         "replaces": "aasist_tpu/ops/fused_frontend.py:79",
+         "launches": f32_launches["fused_frontend_fma"],
+         **results["bfloat16"], "dtype": "bfloat16", "shape": [128, 64600],
+         "path": "f32 frontend kernel", "float32": results["float32"]},
+        {"name": "fused_frontend_padded", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/fused_frontend.cu",
+         "replaces": "tools/fused_stack.py:180",
+         "launches": f32_stack_launches["fused_frontend_padded_fma"],
+         **s16["fused_frontend_padded"], "dtype": "bfloat16",
+         "shape": [128, 64600], "path": "f32 stack",
+         "float32": s32["fused_frontend_padded"]},
+        {"name": "fused_block0", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/fused_block0.cu",
+         "replaces": "tools/fused_stack.py:250",
+         "launches": old_launches["fused_block0_mma"], **s16["fused_block0"],
+         "phases_ms": phases.get("fused_block0"), "dtype": "bfloat16",
+         "shape": [128, 64600],
+         "path": "bf16 stack with the older block 0 (chip_smoke.py)",
+         "float32": {**s32["fused_block0"], "launches":
+                     f32_stack_launches["fused_block0_fma"]}},
+    ]
     probes = {"fused_frontend_dot_fm": "tools/probe_frontend_variants.py:62",
               "fused_frontend_dot_bm": "tools/probe_fe_fix.py:43"}
     for name, where in probes.items():

@@ -22,6 +22,8 @@ from aasist_tpu.nn import BN_EPS
 
 from aasist_tpu_torch.models.layers import ResidualBlock
 from aasist_tpu_torch.ops import fused_stack as fs
+from aasist_tpu_torch.ops.block0_pipe import block0_pipe
+from aasist_tpu_torch.ops.frontend_variants import fused_frontend_dot_padded
 from aasist_tpu_torch.registry import build_model
 from aasist_tpu_torch.serving import Scorer
 from aasist_tpu_torch.weights import load_jax_params
@@ -161,7 +163,10 @@ def test_cpu_tensors_take_the_plain_versions():
     bank = torch.from_numpy(sinc_filterbank(70, 129, 16000))
     x = torch.from_numpy(np.random.default_rng(6).normal(
         0, 1, (2, 1000)).astype(np.float32))
-    before = (fs.fused_frontend_padded.launches, fs.fused_block0.launches)
+    # the kernel wrappers the two routers reach count the launches
+    kernels = (fs.fused_frontend_padded_fma, fused_frontend_dot_padded,
+               fs.fused_block0_fma, fs.fused_block0_mma, block0_pipe)
+    before = [k.launches for k in kernels]
     with torch.inference_mode():
         z = fs.fused_frontend_padded(x, bank, bn_p, bn_s)
         out = fs.fused_block0(z, block)
@@ -170,8 +175,7 @@ def test_cpu_tensors_take_the_plain_versions():
             rtol=0, atol=0)
         torch.testing.assert_close(out, fs.fused_block0_reference(z, block),
                                    rtol=0, atol=0)
-    assert (fs.fused_frontend_padded.launches,
-            fs.fused_block0.launches) == before
+    assert [k.launches for k in kernels] == before
     with pytest.raises(ValueError, match="unsupported device"):
         fs.fused_frontend_padded(x.to("meta"), bank.to("meta"), bn_p, bn_s)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -20,7 +20,9 @@ from aasist_tpu.nn import RngStream
 
 from aasist_tpu_torch import nn as tnn
 from aasist_tpu_torch.models import layers as TL
+from aasist_tpu_torch.ops.frontend_variants import fused_frontend_dot_plain
 from aasist_tpu_torch.ops.fused_frontend import (fused_frontend,
+                                                 fused_frontend_fma,
                                                  fused_frontend_reference)
 from aasist_tpu_torch.weights import load_jax_params
 
@@ -214,9 +216,10 @@ def test_fused_frontend_cpu_tensor_uses_plain_version():
     bn_p, bn_s = _bn()
     bn_p = {k: _t(v) for k, v in bn_p.items()}
     bn_s = {k: _t(v) for k, v in bn_s.items()}
-    before = fused_frontend.launches
+    kernels = (fused_frontend_fma, fused_frontend_dot_plain)
+    before = [k.launches for k in kernels]
     got = fused_frontend(x, bank, bn_p, bn_s)
-    assert fused_frontend.launches == before
+    assert [k.launches for k in kernels] == before
     torch.testing.assert_close(
         got, fused_frontend_reference(x, bank, bn_p, bn_s), rtol=0, atol=0)
     with pytest.raises(ValueError, match="unsupported device"):
