@@ -1,0 +1,189 @@
+"""Command-line entry point (counterpart of ``aasist_tpu/cli.py``).
+
+Scores the eval split of an ASVspoof2019 corpus with the configured
+model and writes the score file and the EER / min t-DCF reports::
+
+    python -m aasist_tpu_torch.cli --config configs/AASIST.conf --eval \\
+        [--eval_model_weights W.npz] [--output_dir DIR] [--comment TAG] \\
+        [--device cuda|cpu]
+
+The run directory is ``{output_dir}/{model_tag}`` with a copy of the
+config, the score file (``eval_output``), ``t-DCF_EER.txt`` and
+``loaded_model_t-DCF_EER.txt``; the last line printed is
+``DONE. EER: ...%, min t-DCF: ...``.
+
+The model runs on ``--device`` (default ``cuda``; without a card that
+raises, as ``Scorer`` does: pass ``--device cpu``).  Precision and kernels
+follow the config, as in the JAX model: ``model_config["dtype"]``
+``"bfloat16"`` casts the model, ``float32`` (the default) computes in full
+f32, with cuDNN's and cuBLAS's TF32 turned off for the run;
+``use_fused_frontend`` and ``use_fused_stack`` pick the CUDA kernels.  On a
+card the eval batch is the serving batch (``SERVING_BATCH_DEFAULTS``);
+``eval_batch_size`` and ``eval_chain`` (default 1) in the config override.
+Training is not ported yet: without ``--eval`` this raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import shutil
+import sys
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+
+class Loaders(NamedTuple):
+    eval: object              # data.dataset.EvalBatcher
+    eval_trial_meta: dict     # utt_id -> (src, key)
+
+
+def default_eval_batch(arch: str, device_type: str, train_bs: int) -> int:
+    """The ``--eval`` batch: on a card the serving batch of the
+    architecture, on the CPU the train batch, as the JAX package keeps it
+    off its accelerator."""
+    if device_type != "cuda":
+        return train_bs
+    from aasist_tpu_torch.serving import SERVING_BATCH_DEFAULTS
+    return SERVING_BATCH_DEFAULTS.get(arch, 128)
+
+
+def build_loaders(cfg, device_type: str) -> Loaders:
+    """The eval split's batcher and trial metadata (the JAX package's
+    ``build_loaders`` with ``eval_only``; the train and dev batchers come
+    with the training slice)."""
+    from aasist_tpu_torch.data import dataset as D
+    from aasist_tpu_torch.data import protocol as P
+
+    entries = P.parse_protocol(cfg.protocol_path("eval"))
+    files = [e.utt_id for e in entries]
+    if cfg.debug_subset is not None:
+        files = files[:cfg.debug_subset[2]]
+    eval_bs = int(cfg.extras.get("eval_batch_size", default_eval_batch(
+        cfg.model_config.get("architecture"), device_type, cfg.batch_size)))
+    batcher = D.EvalBatcher(D.AudioStore(cfg.audio_dir("eval")), files,
+                            batch_size=eval_bs)
+    return Loaders(eval=batcher, eval_trial_meta=P.trial_metadata(entries))
+
+
+def load_model_weights(model: torch.nn.Module, model_path) -> None:
+    """Fill ``model`` from converted weights (``.npz``, strict)."""
+    model_path = Path(model_path)
+    if model_path.suffix == ".npz":
+        from aasist_tpu_torch.weights import load_npz
+        load_npz(model, model_path)
+        return
+    if model_path.suffix == ".pth":
+        raise NotImplementedError(
+            f"{model_path}: reading the reference's .pth checkpoints is not "
+            "ported yet (it comes with utils/torch_compat.py); convert it to "
+            ".npz with the JAX package's "
+            "aasist_tpu.utils.torch_compat.convert_checkpoint")
+    raise ValueError(f"unsupported weights format: {model_path.suffix}")
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN convolutions and cuBLAS matmuls in full f32 (no TF32), as
+    the config asks of an f32 model, restored afterwards."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="ASVspoof detection system (PyTorch / CUDA)")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--output_dir", default="./exp_result")
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--eval", action="store_true",
+                        help="evaluate the configured model and exit")
+    parser.add_argument("--comment", default=None)
+    parser.add_argument("--eval_model_weights", default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume training from the saved train state")
+    parser.add_argument("--debug_subset", type=int, nargs=3, default=None,
+                        metavar=("TRAIN", "DEV", "EVAL"))
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda)")
+    args = parser.parse_args(argv)
+
+    if args.resume:
+        raise NotImplementedError(
+            "--resume resumes training, which is not ported to PyTorch yet "
+            "(ROADMAP.md, queue 1: Training)")
+    if not args.eval:
+        raise NotImplementedError(
+            "training is not ported to PyTorch yet (ROADMAP.md, queue 1: "
+            "Training); run with --eval, or train with "
+            "python -m aasist_tpu.cli")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "cli: no CUDA device is available; pass --device cpu to score "
+            "on the CPU")
+
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.evaluation.metrics import calculate_tdcf_eer
+    from aasist_tpu_torch.models.aasist import count_params
+    from aasist_tpu_torch.registry import build_model
+    from aasist_tpu_torch.train.loop import evaluate_to_file
+    from aasist_tpu_torch.utils.seed import set_seed
+
+    cfg = load_config(args.config)
+    cfg.seed = args.seed
+    if args.debug_subset is not None:
+        cfg.debug_subset = tuple(args.debug_subset)
+    set_seed(args.seed)
+
+    config_name = Path(args.config).stem
+    run_dir = Path(args.output_dir) / cfg.model_tag(
+        config_name, args.comment or "")
+    run_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(args.config, run_dir / "config.conf")
+
+    print(f"Device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+    model = build_model(cfg.model_config)
+    print(f"no. model params: {count_params(model)}")
+    loaders = build_loaders(cfg, device.type)
+
+    weights = args.eval_model_weights or cfg.model_path
+    load_model_weights(model, weights)
+    print(f"Model loaded : {weights}")
+    dtype = cfg.model_config.get("dtype", "float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"model_config dtype {dtype!r}: float32 or "
+                         "bfloat16")
+    model = model.eval().to(device)
+    if dtype == "bfloat16":
+        model = model.to(torch.bfloat16)
+    eval_chain = int(cfg.extras.get("eval_chain", 1))
+    print("Start evaluation...")
+    eval_score_path = run_dir / cfg.eval_output
+    precision = (_full_f32() if dtype == "float32"
+                 else contextlib.nullcontext())
+    with precision:
+        evaluate_to_file(model, loaders.eval, loaders.eval_trial_meta,
+                         eval_score_path, chain=eval_chain)
+    eer, tdcf = calculate_tdcf_eer(
+        eval_score_path, cfg.asv_scores(), run_dir / "t-DCF_EER.txt")
+    # the reference writes the report twice on the eval-only path
+    calculate_tdcf_eer(eval_score_path, cfg.asv_scores(),
+                       run_dir / "loaded_model_t-DCF_EER.txt")
+    print(f"DONE. EER: {eer:.3f}%, min t-DCF: {tdcf:.5f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

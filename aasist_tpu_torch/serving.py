@@ -27,7 +27,7 @@ import torch
 
 from aasist_tpu_torch.data.dataset import (FIXED_EVAL_LEN, pad_into,
                                            pad_to_fixed)
-from aasist_tpu_torch.utils.dispatch import pipelined
+from aasist_tpu_torch.utils.dispatch import Slot, SlotRing, pipelined, record
 
 # Serving batch per architecture.  128 is a starting value, not yet
 # measured on the H100; keys are model_config["architecture"] names.
@@ -45,33 +45,13 @@ def _pad_rows(batch: np.ndarray, size: int) -> np.ndarray:
     return np.concatenate([batch, np.repeat(batch[-1:], size - n, axis=0)])
 
 
-def _record(device: torch.device) -> torch.cuda.Event:
-    """An event recorded on ``device``'s current stream, where a batch's
-    copies and forward were queued, whichever device is current."""
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
-
-
-class _Slot:
-    """Pinned host buffers of one batch in flight, its rows and its scores;
-    ``event`` marks the end of the last batch's work on the device and
-    ``gen`` counts the batches the slot has carried."""
-
-    def __init__(self, batch_size: int, window: int):
-        self.rows = torch.empty((batch_size, window), pin_memory=True)
-        self.scores = torch.empty((batch_size,), pin_memory=True)
-        self.event: Optional[torch.cuda.Event] = None
-        self.gen = 0
-
-
 class _Ticket(NamedTuple):
     """A dispatched batch: its ``n`` real rows' scores, already computed
     (CPU), or in ``slot`` once its event has completed, while the slot
     still carries batch ``gen`` (CUDA)."""
     n: int
     scores: Optional[np.ndarray]
-    slot: Optional[_Slot]
+    slot: Optional[Slot]
     gen: int
 
 
@@ -120,10 +100,9 @@ class Scorer:
         self.model = model
         # a ring of pinned slots, one per batch in flight: DISPATCH_DEPTH
         # + 1 tickets exist at once while a list is scored, and a slot
-        # comes round again only after its ticket has been drained; made at
-        # first use
-        self._ring: List[_Slot] = []
-        self._next = 0
+        # comes round again only after its ticket has been drained
+        self._ring = SlotRing(DISPATCH_DEPTH + 1, (batch_size, window),
+                              batch_size)
 
     @classmethod
     def from_config(cls, config_path, weights_path=None, **kwargs
@@ -153,14 +132,7 @@ class Scorer:
                 x = torch.from_numpy(_pad_rows(rows, self.batch_size))
                 _, logits = self.model(x.to(self.device))
                 return _Ticket(n, logits[:, 1].float().numpy()[:n], None, 0)
-        if not self._ring:
-            self._ring = [_Slot(self.batch_size, self.window)
-                          for _ in range(DISPATCH_DEPTH + 1)]
-        slot = self._ring[self._next]
-        self._next = (self._next + 1) % len(self._ring)
-        if slot.event is not None:       # its last batch is off the buffers
-            slot.event.synchronize()
-        slot.gen += 1
+        slot = self._ring.acquire()
         host = slot.rows.numpy()
         for i, w in enumerate(waves):
             pad_into(host[i], np.asarray(w, np.float32))
@@ -169,7 +141,7 @@ class Scorer:
             x = slot.rows.to(self.device, non_blocking=True)
             _, logits = self.model(x)
             slot.scores.copy_(logits[:, 1].float(), non_blocking=True)
-            slot.event = _record(self.device)
+            slot.event = record(self.device)
         return _Ticket(n, None, slot, slot.gen)
 
     def _drain(self, ticket: _Ticket) -> np.ndarray:
@@ -178,11 +150,7 @@ class Scorer:
         dispatched, or its slot carries another batch and this raises."""
         if ticket.slot is None:
             return ticket.scores
-        if ticket.slot.gen != ticket.gen:
-            raise RuntimeError(
-                f"Scorer: a batch was drained after {DISPATCH_DEPTH + 1} "
-                "later ones were dispatched; its buffers were reused")
-        ticket.slot.event.synchronize()
+        ticket.slot.check(ticket.gen, "Scorer")
         return ticket.slot.scores.numpy()[:ticket.n].copy()
 
     def _fwd(self, waves: Sequence[np.ndarray]) -> np.ndarray:

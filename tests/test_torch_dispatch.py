@@ -22,11 +22,10 @@ from aasist_tpu.utils.dispatch import pipelined as jax_pipelined
 
 from aasist_tpu_torch.config import PACKAGED_CONFIGS, resolve_config_path
 from aasist_tpu_torch.data.dataset import pad_into, pad_to_fixed
-from aasist_tpu_torch import serving
 from aasist_tpu_torch.ops.long_audio import make_windows, score_long_audio
 from aasist_tpu_torch.registry import build_model
 from aasist_tpu_torch.serving import Scorer
-from aasist_tpu_torch.utils.dispatch import pipelined
+from aasist_tpu_torch.utils.dispatch import pipelined, record
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -40,6 +39,16 @@ SMALL_CONF = {
 }
 WINDOW = 16000
 BATCH = 4
+# The CPU forward is not bit-reproducible from one call to the next in
+# every run: under the suite's parallel workers, one row of a first forward
+# once came out 1.8e-7 (about 12 float32 ulps of its 0.22 score) off the
+# serial loop's, and no rerun reproduced it.  Scores are held to the serial
+# loop's within SCORE_ATOL, and each score must lie nearest its own serial
+# score, so the order check stays exact.  The model is seeded and each
+# utterance has its own level (amplitude 0.05 * 1.5**i), which spreads the
+# scores: the smallest gap between two of them here is 6.5e-4, over 600
+# times SCORE_ATOL (_assert_scores_match asserts more than twice it).
+SCORE_ATOL = 1e-6
 
 
 def _trace(fn, n_items, depth):
@@ -84,7 +93,9 @@ def test_pad_into_is_pad_to_fixed(n):
 
 @pytest.fixture(scope="module")
 def model():
-    m = build_model(SMALL_CONF)
+    with torch.random.fork_rng():
+        torch.manual_seed(1)
+        m = build_model(SMALL_CONF)
     rng = np.random.default_rng(3)
     with torch.no_grad():        # BatchNorm off its identity init
         for bn in m.modules():
@@ -95,6 +106,17 @@ def model():
                 bn.running_var.copy_(torch.from_numpy(
                     rng.uniform(0.5, 1.5, n).astype(np.float32)))
     return m
+
+
+def _assert_scores_match(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    if len(want) > 1:           # the nearest-score check is unambiguous
+        assert np.diff(np.sort(want)).min() > 2 * SCORE_ATOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
+    nearest = np.abs(got[:, None] - want[None, :]).argmin(axis=1)
+    np.testing.assert_array_equal(nearest, np.arange(len(want)))
 
 
 def _serial(model, rows):
@@ -114,31 +136,32 @@ def _serial(model, rows):
 @pytest.mark.parametrize("n_waves", [BATCH, 2 * BATCH + 3, 1],
                          ids=["full", "ragged", "one row"])
 def test_pipelined_scores_match_the_serial_loop(model, n_waves):
-    """Scores and their order equal a serial loop of forwards, bit for bit:
-    a full batch, three batches with a ragged last, and a one-row batch."""
+    """Scores and their order equal a serial loop of forwards (to
+    SCORE_ATOL, each nearest its own): a full batch, three batches with a
+    ragged last, and a one-row batch."""
     rng = np.random.default_rng(n_waves)
-    waves = [(rng.standard_normal(n) * 0.05).astype(np.float32)
-             for n in rng.integers(4000, 30000, n_waves)]
+    waves = [(rng.standard_normal(n) * 0.05 * 1.5 ** i).astype(np.float32)
+             for i, n in enumerate(rng.integers(4000, 30000, n_waves))]
     scorer = Scorer(model, device="cpu", bf16=False, window=WINDOW,
                     batch_size=BATCH)
     got = scorer.score_waveforms(waves)
     rows = np.stack([pad_to_fixed(w, WINDOW) for w in waves])
-    np.testing.assert_array_equal(np.asarray(got, np.float32),
-                                  _serial(scorer.model, rows)
-                                  .astype(np.float32))
+    _assert_scores_match(np.asarray(got, np.float32),
+                         _serial(scorer.model, rows).astype(np.float32))
 
 
 @pytest.mark.parametrize("n_waves", [2, 5, 1], ids=["full", "ragged",
                                                     "one row"])
 def test_pipelined_long_audio_matches_the_serial_loop(model, n_waves):
     """With long_audio, every utterance's mean over its windows equals the
-    serial loop's: the windows of all utterances batched in order (two
-    full, seven ragged and one window here)."""
+    serial loop's (to SCORE_ATOL, each nearest its own): the windows of all
+    utterances batched in order (two full, seven ragged and one window
+    here)."""
     rng = np.random.default_rng(10 + n_waves)
     lengths = {2: (40000, 9000), 5: (40000, 70000, 12000, 16000, 30000),
                1: (5000,)}[n_waves]
-    waves = [(rng.standard_normal(n) * 0.05).astype(np.float32)
-             for n in lengths]
+    waves = [(rng.standard_normal(n) * 0.05 * 1.5 ** i).astype(np.float32)
+             for i, n in enumerate(lengths)]
     scorer = Scorer(model, device="cpu", bf16=False, window=WINDOW,
                     batch_size=BATCH)
     got = scorer.score_waveforms(waves, long_audio=True)
@@ -149,7 +172,7 @@ def test_pipelined_long_audio_matches_the_serial_loop(model, n_waves):
     for w in wins:
         want.append(float(np.mean(flat[i:i + len(w)])))
         i += len(w)
-    np.testing.assert_array_equal(got, want)
+    _assert_scores_match(got, want)
 
 
 def test_long_audio_batches_keep_one_shape():
@@ -187,7 +210,7 @@ def test_batch_event_is_recorded_on_the_scorers_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: streams.setdefault(
                             str(device), object()))
-    event = serving._record(torch.device("cuda", 1))
+    event = record(torch.device("cuda", 1))
     assert event.stream is streams["cuda:1"]
 
 
@@ -195,11 +218,10 @@ def test_score_batch_keeps_its_contract(model):
     scorer = Scorer(model, device="cpu", bf16=False, window=WINDOW,
                     batch_size=BATCH)
     rows = (np.random.default_rng(4).standard_normal((3, WINDOW))
-            * 0.05).astype(np.float32)
+            * 0.05 * 1.5 ** np.arange(3)[:, None]).astype(np.float32)
     got = scorer.score_batch(rows)
     assert got.shape == (3,)
-    np.testing.assert_array_equal(got, _serial(scorer.model, rows)
-                                  .astype(np.float32))
+    _assert_scores_match(got, _serial(scorer.model, rows).astype(np.float32))
     assert scorer.score_batch(rows[:0]).shape == (0,)
     with pytest.raises(ValueError, match="exceeds batch_size"):
         scorer.score_batch(np.zeros((BATCH + 1, WINDOW), np.float32))
@@ -215,7 +237,7 @@ def test_packaged_configs_are_the_checkouts():
             (ROOT / "configs" / name).read_bytes()
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert '"aasist_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh", ' \
-        '"configs/*.conf"]' in pyproject
+        '"csrc/*.cpp", "configs/*.conf"]' in pyproject
 
 
 @pytest.mark.parametrize("spelling", ["AASIST", "AASIST.conf",
