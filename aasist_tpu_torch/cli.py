@@ -4,8 +4,8 @@ Scores the eval split of an ASVspoof2019 corpus with the configured
 model and writes the score file and the EER / min t-DCF reports::
 
     python -m aasist_tpu_torch.cli --config configs/AASIST.conf --eval \\
-        [--eval_model_weights W.npz] [--output_dir DIR] [--comment TAG] \\
-        [--device cuda|cpu]
+        [--eval_model_weights W.npz|W.pth] [--output_dir DIR] \\
+        [--comment TAG] [--device cuda|cpu]
 
 The run directory is ``{output_dir}/{model_tag}`` with a copy of the
 config, the score file (``eval_output``), ``t-DCF_EER.txt`` and
@@ -17,8 +17,11 @@ raises, as ``Scorer`` does: pass ``--device cpu``).  Precision and kernels
 follow the config, as in the JAX model: ``model_config["dtype"]``
 ``"bfloat16"`` casts the model, ``float32`` (the default) computes in full
 f32, with cuDNN's and cuBLAS's TF32 turned off for the run;
-``use_fused_frontend`` and ``use_fused_stack`` pick the CUDA kernels.  On a
-card the eval batch is the serving batch (``SERVING_BATCH_DEFAULTS``);
+``use_fused_frontend`` and ``use_fused_stack`` pick the CUDA kernels.  Every
+architecture of the registry runs (``configs/*.conf``); weights come from
+``--eval_model_weights`` or the config's ``model_path``, as the converted
+``.npz`` or the reference's ``.pth``.  On a card the eval batch is the
+serving batch (``SERVING_BATCH_DEFAULTS``);
 ``eval_batch_size`` and ``eval_chain`` (default 1) in the config override.
 Training is not ported yet: without ``--eval`` this raises.
 """
@@ -69,19 +72,18 @@ def build_loaders(cfg, device_type: str) -> Loaders:
 
 
 def load_model_weights(model: torch.nn.Module, model_path) -> None:
-    """Fill ``model`` from converted weights (``.npz``, strict)."""
+    """Fill ``model`` from converted weights (``.npz``) or a reference
+    checkpoint (``.pth``, through ``utils/torch_compat.py``); strict both
+    ways."""
     model_path = Path(model_path)
     if model_path.suffix == ".npz":
         from aasist_tpu_torch.weights import load_npz
         load_npz(model, model_path)
-        return
-    if model_path.suffix == ".pth":
-        raise NotImplementedError(
-            f"{model_path}: reading the reference's .pth checkpoints is not "
-            "ported yet (it comes with utils/torch_compat.py); convert it to "
-            ".npz with the JAX package's "
-            "aasist_tpu.utils.torch_compat.convert_checkpoint")
-    raise ValueError(f"unsupported weights format: {model_path.suffix}")
+    elif model_path.suffix == ".pth":
+        from aasist_tpu_torch.utils.torch_compat import convert_checkpoint
+        convert_checkpoint(model, model_path)
+    else:
+        raise ValueError(f"unsupported weights format: {model_path.suffix}")
 
 
 @contextlib.contextmanager

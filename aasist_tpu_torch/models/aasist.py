@@ -1,24 +1,28 @@
-"""AASIST / AASIST-L eval forward (counterpart of
-``aasist_tpu/models/aasist.py``, residual encoder only).
+"""AASIST / AASIST-L / AASIST2 eval forward (counterpart of
+``aasist_tpu/models/aasist.py``).
 
 Dataflow for AASIST.conf at (B, 64600):
   sinc conv (70 x 129) -> |.| -> maxpool (3,3) -> first_bn -> selu
                                                    -> (B, 1, 23, 21490)
-  6 residual blocks                                -> (B, 64, 23, 29)
+  6 residual blocks (AASIST2: Res2Net + SE blocks) -> (B, 64, 23, 29)
   spectral view: max|e| over time, + pos_S -> GAT -> pool
   temporal view: max|e| over freq          -> GAT -> pool
   2 x (HtrgGAT -> pool -> HtrgGAT + residual) branches with master nodes,
-  fused by elementwise max; readout [max|T|, mean T, max|S|, mean S,
-  master] -> (B, 5 * gat_dims[1]) -> Linear -> 2 logits.
+  fused by elementwise max; [AASIST2, frame level: speaker conditioning of
+  both node sets]; readout [max|T|, mean T, max|S|, mean S, master]
+  -> (B, 5 * gat_dims[1]) -> Linear -> 2 logits.
 
-The model computes in the dtype it was cast to (``model.to(torch.bfloat16)``
-casts the filterbank buffer with the weights).  Parameter names are the
-JAX tree's paths (``encoder.0.conv1.weight``, ``first_bn.running_mean``).
+The encoder is chosen as the JAX model chooses it: ``encoder`` in the
+config, else Res2Net when a ``res2net_*`` key is present (AASIST2.conf keeps
+``architecture: AASIST``).  The model computes in the dtype it was cast to
+(``model.to(torch.bfloat16)`` casts the filterbank buffer with the
+weights).  Parameter names are the JAX tree's paths
+(``encoder.0.conv1.weight``, ``first_bn.running_mean``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -29,48 +33,89 @@ from aasist_tpu_torch.ops.fused_frontend import fused_frontend
 from aasist_tpu_torch.ops.fused_stack import fused_frontend_block0
 
 
-class AasistModel(tnn.Module):
-    """Eval-only AASIST with the original residual encoder.
-
-    ``use_fused_frontend`` routes the frontend through the CUDA kernel
-    (``ops/fused_frontend``).  ``use_fused_stack`` (eval only, default off;
-    the key ``tools/fused_stack.py`` names) runs the frontend and residual
-    block 0 as the CUDA kernel pair of ``ops/fused_stack`` instead, and
-    takes precedence.  ``b0_chunks`` is accepted and ignored: it split
-    block 0 over the batch to fit TPU HBM, and the math is the same
-    unchunked.
-    """
+class SincFrontendModel(tnn.Module):
+    """The sinc frontend of AASIST, AASIST-Robust and RawGAT-ST: the fixed
+    filterbank (a buffer, not in checkpoints), ``first_bn``, and
+    ``frontend``, which ``use_fused_frontend`` routes through the CUDA
+    kernel (``ops/fused_frontend``).  Only the eval forward is ported."""
 
     def __init__(self, model_config: Dict[str, Any]):
         super().__init__()
-        # the JAX model picks the Res2Net encoder (AASIST2) by the presence
-        # of res2net_* keys; that encoder is not ported yet
-        encoder = model_config.get("encoder", "res2net" if (
+        self.config = dict(model_config)
+        self.use_fused_frontend = bool(
+            model_config.get("use_fused_frontend", False))
+        self.register_buffer("filterbank", torch.from_numpy(
+            L.sinc_filterbank(model_config["filts"][0],
+                              model_config["first_conv"])),
+            persistent=False)
+        self.first_bn = tnn.BatchNorm2d(1)
+
+    def frontend(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L) waveform -> (B, 1, C // 3, (L - 128) // 3)."""
+        bank = self.filterbank
+        if self.use_fused_frontend:
+            bn = self.first_bn
+            return fused_frontend(
+                x, bank, {"weight": bn.weight, "bias": bn.bias},
+                {"mean": bn.running_mean, "var": bn.running_var})
+        h = L.sinc_frontend(bank, x).abs()[:, None]          # (B,1,C,L')
+        h = nn.batch_norm(self.first_bn, nn.max_pool(h, (3, 3)), axis=1)
+        return nn.selu(h)
+
+
+def graph_views(m: tnn.Module, e: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The temporal and spectral graphs of AASIST and AASIST-Robust from
+    the encoder output e (B, C, F, T): (pooled temporal nodes, pooled
+    spectral nodes), through ``m``'s pos_S, GAT_layer_S / _T and pool_S /
+    _T."""
+    e_s = e.abs().amax(dim=3).transpose(1, 2) + m.pos_S       # (B,F,C)
+    out_s = m.pool_S(m.GAT_layer_S(e_s))
+    e_t = e.abs().amax(dim=2).transpose(1, 2)                 # (B,T,C)
+    return m.pool_T(m.GAT_layer_T(e_t)), out_s
+
+
+def readout(out_t: torch.Tensor, out_s: torch.Tensor) -> list:
+    """[max|T|, mean T, max|S|, mean S] over the nodes."""
+    return [out_t.abs().amax(dim=1), out_t.mean(dim=1),
+            out_s.abs().amax(dim=1), out_s.mean(dim=1)]
+
+
+class AasistModel(SincFrontendModel):
+    """Eval-only AASIST with the residual or the Res2Net encoder.
+
+    ``use_fused_stack`` (eval only, default off; the key
+    ``tools/fused_stack.py`` names) runs the frontend and residual block 0
+    as the CUDA kernel pair of ``ops/fused_stack`` instead of the frontend
+    and block 0, and takes precedence over ``use_fused_frontend``; the pair
+    implements the residual block 0 only, so setting it on the Res2Net
+    encoder raises (``has_fused_stack``).  ``b0_chunks`` is accepted and
+    ignored: it split block 0 over the batch to fit TPU HBM, and the math
+    is the same unchunked.
+    """
+
+    def __init__(self, model_config: Dict[str, Any]):
+        super().__init__(model_config)
+        self.encoder_type = model_config.get("encoder", "res2net" if (
             "res2net_width" in model_config
             or "res2net_scale" in model_config) else "residual")
-        if encoder != "residual" or model_config.get("speaker_conditioning"):
-            raise NotImplementedError(
-                "the Res2Net encoder and speaker conditioning (AASIST2) are "
-                "not ported yet; see ROADMAP.md")
-        self.config = dict(model_config)
         filts = model_config["filts"]
         g0, g1 = model_config["gat_dims"]
         r = model_config["pool_ratios"]
         t = model_config["temperatures"]
         d_enc = filts[-1][-1]
-        self.use_fused_frontend = bool(
-            model_config.get("use_fused_frontend", False))
+        if self.encoder_type == "residual":
+            self.encoder = L.residual_encoder(filts)
+        elif self.encoder_type == "res2net":
+            self.encoder = L.res2net_encoder(
+                filts, model_config.get("res2net_width", 14),
+                model_config.get("res2net_scale", 8))
+        else:
+            raise ValueError(f"encoder {self.encoder_type!r}: residual or "
+                             "res2net")
+        self.has_fused_stack = self.encoder_type == "residual"
         self.use_fused_stack = bool(
             model_config.get("use_fused_stack", False))
-
-        self.register_buffer("filterbank", torch.from_numpy(
-            L.sinc_filterbank(filts[0], model_config["first_conv"])),
-            persistent=False)
-        self.first_bn = tnn.BatchNorm2d(1)
-        blocks = [filts[1], filts[2], filts[3], filts[4], filts[4], filts[4]]
-        self.encoder = tnn.ModuleList(
-            L.ResidualBlock(cin, cout, first=(i == 0))
-            for i, (cin, cout) in enumerate(blocks))
 
         # one spectral node per pooled filter row (23 at filts[0] = 70)
         self.pos_S = tnn.Parameter(torch.randn(1, filts[0] // 3, d_enc))
@@ -89,19 +134,25 @@ class AasistModel(tnn.Module):
         self.pool_hS2 = L.GraphPool(g1, r[2])
         self.pool_hT2 = L.GraphPool(g1, r[2])
         self.out_layer = tnn.Linear(5 * g1, 2)
+        self.spk_cond_gat = (L.SpeakerConditioning(
+            model_config.get("spk_emb_dim", 256), g1,
+            use_attention=bool(model_config.get("use_attention", True)),
+            level=model_config.get("conditioning_level", "frame"))
+            if model_config.get("speaker_conditioning") else None)
         self.eval()          # only the eval forward exists in this port
 
-    def frontend(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, L) waveform -> (B, 1, C // 3, (L - 128) // 3)."""
-        bank = self.filterbank
-        if self.use_fused_frontend:
-            bn = self.first_bn
-            return fused_frontend(
-                x, bank, {"weight": bn.weight, "bias": bn.bias},
-                {"mean": bn.running_mean, "var": bn.running_var})
-        h = L.sinc_frontend(bank, x).abs()[:, None]          # (B,1,C,L')
-        h = nn.batch_norm(self.first_bn, nn.max_pool(h, (3, 3)), axis=1)
-        return nn.selu(h)
+    @property
+    def use_fused_stack(self) -> bool:
+        return self._use_fused_stack
+
+    @use_fused_stack.setter
+    def use_fused_stack(self, on: bool) -> None:
+        if on and not self.has_fused_stack:
+            raise ValueError(
+                "use_fused_stack: the frontend + block-0 kernel pair "
+                "implements the residual block 0 only, not the "
+                f"{self.encoder_type} encoder")
+        self._use_fused_stack = bool(on)
 
     def fused_stack(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L) waveform -> block 0's (B, C, C_bank // 3, (L - 128) // 9)
@@ -122,28 +173,24 @@ class AasistModel(tnn.Module):
         t_aug, s_aug, m_aug = l2(o_t, o_s, m)
         return o_t + t_aug, o_s + s_aug, m + m_aug
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                speaker_embedding: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, L) waveform -> (last_hidden (B, 5 * g1), logits (B, 2))."""
+        """(B, L) waveform -> (last_hidden (B, 5 * g1), logits (B, 2)).
+        ``speaker_embedding`` (B, spk_emb_dim) conditions a model built
+        with ``speaker_conditioning``, at its ``conditioning_level``, and
+        is ignored by any other."""
         if self.training and self.use_fused_stack:
             raise RuntimeError("use_fused_stack is eval only: the frontend "
                                "+ block-0 kernel pair has no backward")
-        if self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported; call model.eval() "
-                "(training comes in a later slice, see ROADMAP.md)")
-        x = x.to(self.filterbank.dtype).contiguous()
+        x = L.eval_input(self, x)
         if self.use_fused_stack:
             e, blocks = self.fused_stack(x), self.encoder[1:]
         else:
             e, blocks = self.frontend(x), self.encoder
         for block in blocks:
             e = block(e)                                      # (B,C,F,T)
-
-        e_s = e.abs().amax(dim=3).transpose(1, 2) + self.pos_S   # (B,F,C)
-        out_s = self.pool_S(self.GAT_layer_S(e_s))
-        e_t = e.abs().amax(dim=2).transpose(1, 2)                 # (B,T,C)
-        out_t = self.pool_T(self.GAT_layer_T(e_t))
+        out_t, out_s = graph_views(self, e)
 
         # the JAX eval forward vmaps the two branches; same math in turn
         out_t1, out_s1, master1 = self._branch("1", out_t, out_s,
@@ -154,10 +201,17 @@ class AasistModel(tnn.Module):
         out_s = torch.maximum(out_s1, out_s2)
         master = torch.maximum(master1, master2)
 
-        last_hidden = torch.cat(
-            [out_t.abs().amax(dim=1), out_t.mean(dim=1),
-             out_s.abs().amax(dim=1), out_s.mean(dim=1), master[:, 0]],
-            dim=1)
+        cond = (self.spk_cond_gat if speaker_embedding is not None
+                else None)
+        if cond is not None:
+            speaker_embedding = speaker_embedding.to(x.dtype)
+        if cond is not None and cond.level == "frame":
+            out_t = cond(out_t, speaker_embedding)
+            out_s = cond(out_s, speaker_embedding)
+        last_hidden = torch.cat(readout(out_t, out_s) + [master[:, 0]],
+                                dim=1)
+        if cond is not None and cond.level == "utterance":
+            last_hidden = cond(last_hidden, speaker_embedding)
         return last_hidden, self.out_layer(last_hidden)
 
 

@@ -1,12 +1,15 @@
-"""AASIST building blocks, eval mode (counterpart of
+"""Building blocks of the model zoo, eval mode (counterpart of
 ``aasist_tpu/models/layers.py``).
 
 Each module's parameter names are the JAX tree's keys, so
-``weights.load_jax_params`` maps a checkpoint by name.  Reference quirks the
-checkpoints were trained with are kept: the attention softmax runs over the
-source-node axis (-2), both cross blocks of the heterogeneous attention
-share ``att_weight12``, graph pooling keeps its nodes in descending-score
-order, and the residual block's ``bn1`` output is discarded.
+``weights.load_jax_params`` maps a checkpoint by name (the reference's
+``nn.Sequential`` indices included: ``se.fc.0``, ``attention.2``).
+Reference quirks the checkpoints were trained with are kept: the attention
+softmax runs over the source-node axis (-2), both cross blocks of the
+heterogeneous attention share ``att_weight12``, graph pooling keeps its
+nodes in descending-score order, the residual block's ``bn1`` output is
+discarded, and the Res2Net block's carry joins a split only every
+``scale`` splits.
 """
 
 from __future__ import annotations
@@ -63,6 +66,17 @@ def sinc_filterbank(out_channels: int, kernel_size: int,
 def sinc_frontend(bank: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The filterbank as a 1-D conv: (B, L) -> (B, C, L - K + 1)."""
     return F.conv1d(x[:, None, :], bank[:, None, :])
+
+
+def eval_input(model: tnn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype of ``model``'s filterbank (the dtype it was cast
+    to), contiguous; raises in train mode: only the eval forwards are
+    ported."""
+    if model.training:
+        raise NotImplementedError(
+            "only the eval forward is ported; call model.eval() "
+            "(training comes in a later slice, see ROADMAP.md)")
+    return x.to(model.filterbank.dtype).contiguous()
 
 
 # =====================================================================
@@ -150,17 +164,19 @@ class HtrgGraphAttention(tnn.Module):
 
 
 class GraphPool(tnn.Module):
-    """Keep the top ``max(int(N*k), 1)`` nodes, in descending-score order,
-    each scaled by its sigmoid score."""
+    """Keep the top ``max(int(N*k), min_nodes)`` nodes, in descending-score
+    order, each scaled by its sigmoid score (AASIST keeps at least 1 node,
+    RawGAT-ST at least 2)."""
 
-    def __init__(self, in_dim: int, k: float):
+    def __init__(self, in_dim: int, k: float, min_nodes: int = 1):
         super().__init__()
         self.k = k
+        self.min_nodes = min_nodes
         self.proj = tnn.Linear(in_dim, 1)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         scores = torch.sigmoid(self.proj(h))                  # (B,N,1)
-        n_keep = max(int(h.shape[1] * self.k), 1)
+        n_keep = max(int(h.shape[1] * self.k), self.min_nodes)
         idx = torch.topk(scores[..., 0], n_keep, dim=1, sorted=True).indices
         h = h * scores
         return torch.gather(
@@ -197,3 +213,133 @@ class ResidualBlock(tnn.Module):
         identity = (x if self.conv_downsample is None
                     else self.conv_downsample(x))
         return nn.max_pool(out + identity, (1, 3))
+
+
+def encoder_plan(filts) -> list:
+    """The six encoder blocks' (in, out) channels: filts[1..4], the last
+    repeated."""
+    return [filts[1], filts[2], filts[3], filts[4], filts[4], filts[4]]
+
+
+def residual_encoder(filts) -> tnn.ModuleList:
+    return tnn.ModuleList(ResidualBlock(cin, cout, first=(i == 0))
+                          for i, (cin, cout) in enumerate(encoder_plan(filts)))
+
+
+# =====================================================================
+# SE layer + Res2Net block (AASIST2's encoder)
+# =====================================================================
+class SE(tnn.Module):
+    """Squeeze-and-excitation over NCHW: channel means -> fc -> ReLU -> fc
+    -> sigmoid gates, no biases."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc = tnn.Sequential(
+            tnn.Linear(channels, channels // reduction, bias=False),
+            tnn.ReLU(),
+            tnn.Linear(channels // reduction, channels, bias=False),
+            tnn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
+
+
+def res2net_split_sizes(in_ch: int, width: int) -> list:
+    """Channels of each split: ``width - 1`` of ``max(1, in_ch // width)``
+    and the rest in the last (thirteen 2s and a 6 at 32 / 14)."""
+    base = max(1, in_ch // width)
+    return [base] * (width - 1) + [in_ch - base * (width - 1)]
+
+
+class Res2NetBlock(tnn.Module):
+    """Res2Net + SE encoder block: bn1 / SELU (consumed, unlike the
+    residual block's) -> a (3,3) conv per channel split, split i starting
+    from the previous split's output plus its own channels where
+    ``i % scale == 0`` (i > 0) and afresh elsewhere -> concat -> bn2 / SELU
+    -> (3,3) ``conv_cat`` -> SE -> + identity (a (1,3) conv when channels
+    change) -> MaxPool (1,3).  Width and scale clamp to ``in_ch``: the first
+    block (1 channel) has one split."""
+
+    def __init__(self, in_ch: int, out_ch: int, first: bool,
+                 width: int = 14, scale: int = 8):
+        super().__init__()
+        self.width = min(width, in_ch)
+        self.scale = min(scale, self.width)
+        self.sizes = res2net_split_sizes(in_ch, self.width)
+        self.convs = tnn.ModuleList(tnn.Conv2d(c, c, 3, padding=1)
+                                    for c in self.sizes)
+        self.conv_cat = tnn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.se = SE(out_ch)
+        self.bn2 = tnn.BatchNorm2d(in_ch)
+        if not first:
+            self.bn1 = tnn.BatchNorm2d(in_ch)
+        self.conv_downsample = (
+            tnn.Conv2d(in_ch, out_ch, (1, 3), padding=(0, 1))
+            if in_ch != out_ch else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x
+        if hasattr(self, "bn1"):
+            x = nn.selu(nn.batch_norm(self.bn1, x, axis=1))
+        outputs = []
+        sp = None
+        for i, spx in enumerate(torch.split(x, self.sizes, dim=1)):
+            sp = sp + spx if i > 0 and i % self.scale == 0 else spx
+            sp = self.convs[i](sp)
+            outputs.append(sp)
+        out = nn.selu(nn.batch_norm(self.bn2, torch.cat(outputs, dim=1),
+                                    axis=1))
+        out = self.se(self.conv_cat(out))
+        if self.conv_downsample is not None:
+            identity = self.conv_downsample(identity)
+        return nn.max_pool(out + identity, (1, 3))
+
+
+def res2net_encoder(filts, width: int, scale: int) -> tnn.ModuleList:
+    return tnn.ModuleList(
+        Res2NetBlock(cin, cout, first=(i == 0), width=width, scale=scale)
+        for i, (cin, cout) in enumerate(encoder_plan(filts)))
+
+
+# =====================================================================
+# Speaker conditioning (AASIST2)
+# =====================================================================
+class SpeakerConditioning(tnn.Module):
+    """Fuse a projected speaker embedding into features.
+
+    ``level="frame"``: features (B, N, D); the embedding, projected to D
+    and broadcast over the N nodes (weighted by a softmax over the nodes of
+    an attention score when ``use_attention``), is concatenated to each
+    node, then Linear -> ReLU.  ``level="utterance"``: features (B, D), or
+    (B, N, D) averaged over the nodes, concatenated with the projected
+    embedding, then Linear -> ReLU.
+    """
+
+    def __init__(self, spk_emb_dim: int, target_dim: int,
+                 use_attention: bool = True, level: str = "frame"):
+        super().__init__()
+        if level not in ("frame", "utterance"):
+            raise ValueError(f"conditioning_level {level!r}: frame or "
+                             "utterance")
+        self.level = level
+        self.proj = tnn.Linear(spk_emb_dim, target_dim)
+        self.fusion = tnn.Sequential(tnn.Linear(2 * target_dim, target_dim),
+                                     tnn.ReLU())
+        self.attention = (tnn.Sequential(
+            tnn.Linear(2 * target_dim, target_dim), tnn.Tanh(),
+            tnn.Linear(target_dim, 1)) if use_attention else None)
+
+    def forward(self, features: torch.Tensor, spk_emb: torch.Tensor
+                ) -> torch.Tensor:
+        spk = self.proj(spk_emb)                              # (B, D)
+        if self.level == "utterance":
+            if features.dim() == 3:
+                features = features.mean(dim=1)
+            return self.fusion(torch.cat([features, spk], dim=1))
+        spk = spk[:, None, :].expand(-1, features.shape[1], -1)
+        if self.attention is not None:
+            w = torch.softmax(self.attention(
+                torch.cat([features, spk], dim=2)), dim=1)    # (B, N, 1)
+            spk = w * spk
+        return self.fusion(torch.cat([features, spk], dim=2))

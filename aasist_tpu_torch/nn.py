@@ -29,9 +29,10 @@ def batch_norm(bn: torch.nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 
 
 def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
-    """Max pool over the trailing ``len(window)`` dims of NCHW, VALID
+    """Max pool over the trailing ``len(window)`` dims (NCL or NCHW), VALID
     padding (floor), stride equal to the window."""
-    return F.max_pool2d(x, tuple(window))
+    pool = F.max_pool1d if len(window) == 1 else F.max_pool2d
+    return pool(x, tuple(window))
 
 
 # torch's SELU constants equal jax.nn.selu's (alpha 1.6732632423543772,

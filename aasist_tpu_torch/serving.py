@@ -29,9 +29,16 @@ from aasist_tpu_torch.data.dataset import (FIXED_EVAL_LEN, pad_into,
                                            pad_to_fixed)
 from aasist_tpu_torch.utils.dispatch import Slot, SlotRing, pipelined, record
 
-# Serving batch per architecture.  128 is a starting value, not yet
-# measured on the H100; keys are model_config["architecture"] names.
-SERVING_BATCH_DEFAULTS = {"AASIST": 128}
+# Serving batch per architecture: the JAX package's starting values (128;
+# RawNet2's 1-D trunk 256), not yet measured on the H100.  Keys are
+# model_config["architecture"] names; others get 128.
+SERVING_BATCH_DEFAULTS = {
+    "AASIST": 128,
+    "AASIST2": 128,
+    "AASIST_Robust": 128,
+    "RawNet2Spoof": 256,
+    "RawNetGatSpoofST": 128,
+}
 
 # Batches in flight while scoring a list (``utils/dispatch.py``), as in
 # ``ops/long_audio.py``: the reference's depth.
@@ -62,10 +69,13 @@ class Scorer:
     pass ``device="cpu"`` to score on the CPU.  ``bf16=True`` casts the
     float32 weights and buffers to bfloat16 and computes in it.
     ``use_fused_frontend=None`` turns the CUDA sinc-frontend kernel on when
-    computing in bf16 on a CUDA device.  ``use_fused_stack=True`` runs the
-    frontend and residual block 0 through the CUDA kernel pair of
-    ``ops/fused_stack`` instead (off by default).  The caller's model is not
-    changed: the scorer works on its own copy.
+    computing in bf16 on a CUDA device, for a model that has that path
+    (AASIST, AASIST2, AASIST-Robust, RawGAT-ST; not RawNet2).
+    ``use_fused_stack=True`` runs the frontend and residual block 0 through
+    the CUDA kernel pair of ``ops/fused_stack`` instead (off by default;
+    AASIST's residual encoder only).  Asking for a path the model lacks
+    raises.  The caller's model is not changed: the scorer works on its own
+    copy.
     """
 
     def __init__(self, model: torch.nn.Module, *,
@@ -89,14 +99,17 @@ class Scorer:
         if bf16:
             model = model.to(torch.bfloat16)
         if use_fused_frontend is None:
-            use_fused_frontend = bf16 and device.type == "cuda"
-        if hasattr(model, "use_fused_frontend"):
-            model.use_fused_frontend = bool(use_fused_frontend)
-        if hasattr(model, "use_fused_stack"):
-            model.use_fused_stack = bool(use_fused_stack)
-        elif use_fused_stack:
-            raise ValueError(f"Scorer: {type(model).__name__} has no fused "
-                             "frontend + block-0 path")
+            use_fused_frontend = (bf16 and device.type == "cuda"
+                                  and hasattr(model, "use_fused_frontend"))
+        for key, on, path in (
+                ("use_fused_frontend", use_fused_frontend, "fused frontend"),
+                ("use_fused_stack", use_fused_stack,
+                 "fused frontend + block-0")):
+            if hasattr(model, key):
+                setattr(model, key, bool(on))  # AASIST2's stack raises
+            elif on:
+                raise ValueError(f"Scorer: {type(model).__name__} has no "
+                                 f"{path} path")
         self.model = model
         # a ring of pinned slots, one per batch in flight: DISPATCH_DEPTH
         # + 1 tickets exist at once while a list is scored, and a slot
@@ -107,13 +120,13 @@ class Scorer:
     @classmethod
     def from_config(cls, config_path, weights_path=None, **kwargs
                     ) -> "Scorer":
+        from aasist_tpu_torch.cli import load_model_weights
         from aasist_tpu_torch.config import load_config
         from aasist_tpu_torch.registry import build_model
-        from aasist_tpu_torch.weights import load_npz
 
         cfg = load_config(config_path)
         model = build_model(cfg.model_config)
-        load_npz(model, weights_path or cfg.model_path)
+        load_model_weights(model, weights_path or cfg.model_path)
         return cls(model, **kwargs)
 
     def _dispatch(self, waves: Sequence[np.ndarray]) -> _Ticket:

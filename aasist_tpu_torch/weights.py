@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameter trees into the port's modules.
+"""Carry the JAX package's parameter trees into the port's modules, and
+write a module's weights back in their layout (``checkpoints/*.npz``).
 
 The port's parameter and buffer names are the JAX tree paths joined by '.',
 with BatchNorm's ``mean``/``var`` state named ``running_mean``/
@@ -10,27 +11,19 @@ counters, which have no JAX counterpart, excepted).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-from aasist_tpu_torch.utils.pytree_io import load_tree_npz
+from aasist_tpu_torch.utils.pytree_io import (flatten_tree, load_tree_npz,
+                                              save_tree_npz)
 
 _STATE_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
-        return {prefix[:-1]: np.asarray(tree)}
-    out: Dict[str, np.ndarray] = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}{k}."))
-    return out
+def _flatten(tree: Any) -> Dict[str, np.ndarray]:
+    return {k.replace("/", "."): v for k, v in flatten_tree(tree).items()}
 
 
 def load_jax_params(model: torch.nn.Module, params: Any, state: Any
@@ -64,3 +57,29 @@ def load_jax_params(model: torch.nn.Module, params: Any, state: Any
 def load_npz(model: torch.nn.Module, path) -> torch.nn.Module:
     """Fill ``model`` from a converted checkpoint (``checkpoints/*.npz``)."""
     return load_jax_params(model, *load_tree_npz(path))
+
+
+def jax_trees(model: torch.nn.Module) -> Tuple[Dict[str, Any],
+                                               Dict[str, Any]]:
+    """``model``'s (params, state) as the JAX package's nested trees of
+    float32 numpy arrays: BatchNorm statistics under ``state`` as
+    ``mean`` / ``var``, everything else under ``params``;
+    ``num_batches_tracked`` dropped."""
+    names = {v: k for k, v in _STATE_NAMES.items()}
+    params: Dict[str, Any] = {}
+    state: Dict[str, Any] = {}
+    for key, value in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        *path, leaf = key.split(".")
+        node = state if leaf in names else params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[names.get(leaf, leaf)] = value.detach().float().cpu().numpy()
+    return params, state
+
+
+def save_npz(model: torch.nn.Module, path) -> None:
+    """Write ``model``'s weights in the layout of ``checkpoints/*.npz``,
+    which ``load_npz`` and the JAX package's ``load_tree_npz`` read."""
+    save_tree_npz(path, *jax_trees(model))

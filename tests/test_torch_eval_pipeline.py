@@ -241,9 +241,15 @@ def test_cli_resume_raises(tmp_path):
 
 
 def test_only_converted_weights_load(tmp_path):
+    """Converted .npz and reference .pth checkpoints load (the .pth through
+    utils/torch_compat.py, tests/test_torch_torch_compat.py); any other
+    suffix raises."""
     model = build_model(SMALL_CONF)
-    with pytest.raises(NotImplementedError, match="torch_compat"):
-        cli.load_model_weights(model, tmp_path / "AASIST.pth")
+    torch.save(model.state_dict(), tmp_path / "AASIST.pth")
+    other = build_model(SMALL_CONF)
+    cli.load_model_weights(other, tmp_path / "AASIST.pth")
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(other.state_dict()[k], v, rtol=0, atol=0)
     with pytest.raises(ValueError, match="unsupported"):
         cli.load_model_weights(model, tmp_path / "AASIST.ckpt")
 
