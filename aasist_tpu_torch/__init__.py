@@ -6,11 +6,12 @@ against.  The port mirrors the JAX layout module for module (``nn``,
 ``registry``, ``config``) but imports neither JAX nor anything of
 ``aasist_tpu``: the few JAX-free helpers it needs are its own copies.
 
-This slice covers pretrained AASIST eval scoring on an NVIDIA H100.  The
-sinc frontend runs through a hand-written CUDA kernel
-(``csrc/fused_frontend.cu``), built with ``nvcc`` at first use.  Nothing
-heavy is imported here; the kernel library is built and loaded only when a
-CUDA tensor first reaches it.
+It scores and trains the model zoo on an NVIDIA H100
+(``serving.Scorer``; ``python -m aasist_tpu_torch.cli --config C
+[--eval]``).  Every Pallas kernel of the JAX package has a hand-written
+CUDA counterpart under ``csrc/``, built with ``nvcc`` at first use.
+Nothing heavy is imported here; a kernel library is built and loaded only
+when a CUDA tensor first reaches it.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""AASIST / AASIST-L / AASIST2 eval forward (counterpart of
+"""AASIST / AASIST-L / AASIST2 forward, eval and train (counterpart of
 ``aasist_tpu/models/aasist.py``).
 
 Dataflow for AASIST.conf at (B, 64600):
@@ -18,6 +18,15 @@ config, else Res2Net when a ``res2net_*`` key is present (AASIST2.conf keeps
 (``model.to(torch.bfloat16)`` casts the filterbank buffer with the
 weights).  Parameter names are the JAX tree's paths
 (``encoder.0.conv1.weight``, ``first_bn.running_mean``).
+
+In train mode (``model.train()``) the forward takes the stock sinc conv
+path whatever ``use_fused_frontend`` says (the kernel has no backward, as
+in the JAX package), BatchNorm uses batch statistics and moves its running
+ones, ``freq_aug`` masks the filterbank, and the dropouts of the JAX
+forward apply, drawn from the ``rngs`` stream: the graph layers', then 0.2
+on each branch's temporal and spectral nodes and master, 0.5 on
+``last_hidden``.  ``remat`` (default on) recomputes each encoder block in
+the backward.  Models are built in eval mode; a trainer calls ``train()``.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ class SincFrontendModel(tnn.Module):
     """The sinc frontend of AASIST, AASIST-Robust and RawGAT-ST: the fixed
     filterbank (a buffer, not in checkpoints), ``first_bn``, and
     ``frontend``, which ``use_fused_frontend`` routes through the CUDA
-    kernel (``ops/fused_frontend``).  Only the eval forward is ported."""
+    kernel (``ops/fused_frontend``) in eval mode."""
 
     def __init__(self, model_config: Dict[str, Any]):
         super().__init__()
@@ -50,10 +59,10 @@ class SincFrontendModel(tnn.Module):
             persistent=False)
         self.first_bn = tnn.BatchNorm2d(1)
 
-    def frontend(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, L) waveform -> (B, 1, C // 3, (L - 128) // 3)."""
-        bank = self.filterbank
-        if self.use_fused_frontend:
+    def frontend(self, x: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+        """(B, L) waveform -> (B, 1, C // 3, (L - 128) // 3) through the
+        filterbank ``bank`` (C, K)."""
+        if self.use_fused_frontend and not self.training:
             bn = self.first_bn
             return fused_frontend(
                 x, bank, {"weight": bn.weight, "bias": bn.bias},
@@ -63,16 +72,17 @@ class SincFrontendModel(tnn.Module):
         return nn.selu(h)
 
 
-def graph_views(m: tnn.Module, e: torch.Tensor
+def graph_views(m: tnn.Module, e: torch.Tensor,
+                rngs: Optional[nn.RngStream] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The temporal and spectral graphs of AASIST and AASIST-Robust from
     the encoder output e (B, C, F, T): (pooled temporal nodes, pooled
     spectral nodes), through ``m``'s pos_S, GAT_layer_S / _T and pool_S /
     _T."""
     e_s = e.abs().amax(dim=3).transpose(1, 2) + m.pos_S       # (B,F,C)
-    out_s = m.pool_S(m.GAT_layer_S(e_s))
+    out_s = m.pool_S(m.GAT_layer_S(e_s, rngs), rngs)
     e_t = e.abs().amax(dim=2).transpose(1, 2)                 # (B,T,C)
-    return m.pool_T(m.GAT_layer_T(e_t)), out_s
+    return m.pool_T(m.GAT_layer_T(e_t, rngs), rngs), out_s
 
 
 def readout(out_t: torch.Tensor, out_s: torch.Tensor) -> list:
@@ -82,7 +92,7 @@ def readout(out_t: torch.Tensor, out_s: torch.Tensor) -> list:
 
 
 class AasistModel(SincFrontendModel):
-    """Eval-only AASIST with the residual or the Res2Net encoder.
+    """AASIST with the residual or the Res2Net encoder.
 
     ``use_fused_stack`` (eval only, default off; the key
     ``tools/fused_stack.py`` names) runs the frontend and residual block 0
@@ -113,6 +123,7 @@ class AasistModel(SincFrontendModel):
         else:
             raise ValueError(f"encoder {self.encoder_type!r}: residual or "
                              "res2net")
+        self.remat = bool(model_config.get("remat", True))
         self.has_fused_stack = self.encoder_type == "residual"
         self.use_fused_stack = bool(
             model_config.get("use_fused_stack", False))
@@ -139,7 +150,7 @@ class AasistModel(SincFrontendModel):
             use_attention=bool(model_config.get("use_attention", True)),
             level=model_config.get("conditioning_level", "frame"))
             if model_config.get("speaker_conditioning") else None)
-        self.eval()          # only the eval forward exists in this port
+        self.eval()
 
     @property
     def use_fused_stack(self) -> bool:
@@ -154,49 +165,56 @@ class AasistModel(SincFrontendModel):
                 f"{self.encoder_type} encoder")
         self._use_fused_stack = bool(on)
 
-    def fused_stack(self, x: torch.Tensor) -> torch.Tensor:
+    def fused_stack(self, x: torch.Tensor, bank: torch.Tensor
+                    ) -> torch.Tensor:
         """(B, L) waveform -> block 0's (B, C, C_bank // 3, (L - 128) // 9)
         through the frontend + block-0 kernel pair."""
         bn = self.first_bn
         return fused_frontend_block0(
-            x, self.filterbank, {"weight": bn.weight, "bias": bn.bias},
+            x, bank, {"weight": bn.weight, "bias": bn.bias},
             {"mean": bn.running_mean, "var": bn.running_var},
             self.encoder[0])
 
-    def _branch(self, tag: str, out_t, out_s, master):
+    def _branch(self, tag: str, out_t, out_s, master, rngs):
         l1 = getattr(self, f"HtrgGAT_layer_ST{tag}1")
         l2 = getattr(self, f"HtrgGAT_layer_ST{tag}2")
         # the raw (1, 1, D) master parameter goes in as is (broadcast)
-        o_t, o_s, m = l1(out_t, out_s, master)
-        o_s = getattr(self, f"pool_hS{tag}")(o_s)
-        o_t = getattr(self, f"pool_hT{tag}")(o_t)
-        t_aug, s_aug, m_aug = l2(o_t, o_s, m)
+        o_t, o_s, m = l1(out_t, out_s, master, rngs)
+        o_s = getattr(self, f"pool_hS{tag}")(o_s, rngs)
+        o_t = getattr(self, f"pool_hT{tag}")(o_t, rngs)
+        t_aug, s_aug, m_aug = l2(o_t, o_s, m, rngs)
         return o_t + t_aug, o_s + s_aug, m + m_aug
 
     def forward(self, x: torch.Tensor,
-                speaker_embedding: Optional[torch.Tensor] = None
+                speaker_embedding: Optional[torch.Tensor] = None, *,
+                rngs: Optional[nn.RngStream] = None, freq_aug: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) waveform -> (last_hidden (B, 5 * g1), logits (B, 2)).
         ``speaker_embedding`` (B, spk_emb_dim) conditions a model built
         with ``speaker_conditioning``, at its ``conditioning_level``, and
-        is ignored by any other."""
-        if self.training and self.use_fused_stack:
+        is ignored by any other.  ``rngs`` feeds the train-mode dropouts
+        and ``freq_aug``'s mask."""
+        train = self.training
+        if train and self.use_fused_stack:
             raise RuntimeError("use_fused_stack is eval only: the frontend "
                                "+ block-0 kernel pair has no backward")
-        x = L.eval_input(self, x)
+        x, bank = L.model_input(self, x, rngs, freq_aug)
         if self.use_fused_stack:
-            e, blocks = self.fused_stack(x), self.encoder[1:]
+            e, blocks = self.fused_stack(x, bank), self.encoder[1:]
         else:
-            e, blocks = self.frontend(x), self.encoder
-        for block in blocks:
-            e = block(e)                                      # (B,C,F,T)
-        out_t, out_s = graph_views(self, e)
+            e, blocks = self.frontend(x, bank), self.encoder
+        e = L.run_encoder(blocks, e, self.remat)              # (B,C,F,T)
+        out_t, out_s = graph_views(self, e, rngs)
 
         # the JAX eval forward vmaps the two branches; same math in turn
         out_t1, out_s1, master1 = self._branch("1", out_t, out_s,
-                                               self.master1)
+                                               self.master1, rngs)
         out_t2, out_s2, master2 = self._branch("2", out_t, out_s,
-                                               self.master2)
+                                               self.master2, rngs)
+        if train:
+            out_t1, out_t2, out_s1, out_s2, master1, master2 = (
+                nn.stream_dropout(rngs, t, 0.2, True)
+                for t in (out_t1, out_t2, out_s1, out_s2, master1, master2))
         out_t = torch.maximum(out_t1, out_t2)
         out_s = torch.maximum(out_s1, out_s2)
         master = torch.maximum(master1, master2)
@@ -212,6 +230,7 @@ class AasistModel(SincFrontendModel):
                                 dim=1)
         if cond is not None and cond.level == "utterance":
             last_hidden = cond(last_hidden, speaker_embedding)
+        last_hidden = nn.stream_dropout(rngs, last_hidden, 0.5, train)
         return last_hidden, self.out_layer(last_hidden)
 
 

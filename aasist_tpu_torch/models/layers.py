@@ -1,4 +1,4 @@
-"""Building blocks of the model zoo, eval mode (counterpart of
+"""Building blocks of the model zoo, in eval and train mode (counterpart of
 ``aasist_tpu/models/layers.py``).
 
 Each module's parameter names are the JAX tree's keys, so
@@ -8,12 +8,19 @@ Reference quirks the checkpoints were trained with are kept: the attention
 softmax runs over the source-node axis (-2), both cross blocks of the
 heterogeneous attention share ``att_weight12``, graph pooling keeps its
 nodes in descending-score order, the residual block's ``bn1`` output is
-discarded, and the Res2Net block's carry joins a split only every
-``scale`` splits.
+discarded (in train mode bn1 still runs, so its running statistics move,
+and its parameters get no gradient), and the Res2Net block's carry joins a
+split only every ``scale`` splits.
+
+In train mode (``module.train()``) BatchNorm uses the batch's statistics
+and updates its running ones, and the graph layers apply the JAX package's
+dropouts, drawn from the ``nn.RngStream`` passed to ``forward``: 0.2 on a
+graph attention's input, the pool's ``dropout_p`` on the scores' input.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from aasist_tpu_torch import nn
 
@@ -68,15 +76,46 @@ def sinc_frontend(bank: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return F.conv1d(x[:, None, :], bank[:, None, :])
 
 
-def eval_input(model: tnn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``x`` in the dtype of ``model``'s filterbank (the dtype it was cast
-    to), contiguous; raises in train mode: only the eval forwards are
-    ported."""
-    if model.training:
-        raise NotImplementedError(
-            "only the eval forward is ported; call model.eval() "
-            "(training comes in a later slice, see ROADMAP.md)")
-    return x.to(model.filterbank.dtype).contiguous()
+def freq_mask_rows(bank: torch.Tensor, width: int, start: int
+                   ) -> torch.Tensor:
+    """``bank`` with its rows [start, start + width) zeroed."""
+    rows = torch.arange(bank.shape[0], device=bank.device)[:, None]
+    keep = (rows < start) | (rows >= start + width)
+    return torch.where(keep, bank, torch.zeros((), dtype=bank.dtype,
+                                               device=bank.device))
+
+
+def freq_mask_draw(generator: torch.Generator, channels: int
+                   ) -> Tuple[int, int]:
+    """The reference's frequency-mask law: width ``floor(U[0, 20))``, start
+    uniform over 0 .. channels - width inclusive; two draws from a CPU
+    ``generator`` (no device sync)."""
+    width = int(torch.rand((), generator=generator,
+                           dtype=torch.float64) * 20.0)
+    start = int(torch.randint(0, channels + 1 - width, (),
+                              generator=generator))
+    return width, start
+
+
+def freq_mask_filterbank(generator: torch.Generator, bank: torch.Tensor
+                         ) -> torch.Tensor:
+    """Frequency-band augmentation (``freq_aug``): zero a random contiguous
+    run of filters, drawn by ``freq_mask_draw``."""
+    return freq_mask_rows(bank, *freq_mask_draw(generator, bank.shape[0]))
+
+
+def model_input(model: tnn.Module, x: torch.Tensor, rngs: nn.RngStream,
+                freq_aug: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``x`` in the dtype of ``model``'s filterbank (the dtype it was cast
+    to), contiguous; the filterbank, frequency-masked from the stream's
+    next generator when ``freq_aug``).  The mask is drawn on the host."""
+    bank = model.filterbank
+    if freq_aug:
+        g = rngs.next("cpu")
+        if g is None:
+            raise ValueError("freq_aug needs an RngStream with a key")
+        bank = freq_mask_filterbank(g, bank)
+    return x.to(bank.dtype).contiguous(), bank
 
 
 # =====================================================================
@@ -100,7 +139,9 @@ class GraphAttention(tnn.Module):
         self.proj_without_att = tnn.Linear(in_dim, out_dim)
         self.bn = tnn.BatchNorm1d(out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rngs: Optional[nn.RngStream] = None
+                ) -> torch.Tensor:
+        x = nn.stream_dropout(rngs, x, 0.2, self.training)
         pair = x[:, :, None, :] * x[:, None, :, :]            # (B,N,N,D)
         a = torch.tanh(self.att_proj(pair)) @ self.att_weight  # (B,N,N,1)
         a = torch.softmax(a / self.temperature, dim=-2)       # source axis
@@ -131,12 +172,14 @@ class HtrgGraphAttention(tnn.Module):
         self.bn = tnn.BatchNorm1d(out_dim)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                master: Optional[torch.Tensor] = None
+                master: Optional[torch.Tensor] = None,
+                rngs: Optional[nn.RngStream] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         n1 = x1.shape[1]
         x = torch.cat([self.proj_type1(x1), self.proj_type2(x2)], dim=1)
         if master is None:
             master = x.mean(dim=1, keepdim=True)
+        x = nn.stream_dropout(rngs, x, 0.2, self.training)
 
         # blockwise attention board; both cross blocks use att_weight12
         pair = x[:, :, None, :] * x[:, None, :, :]
@@ -166,16 +209,21 @@ class HtrgGraphAttention(tnn.Module):
 class GraphPool(tnn.Module):
     """Keep the top ``max(int(N*k), min_nodes)`` nodes, in descending-score
     order, each scaled by its sigmoid score (AASIST keeps at least 1 node,
-    RawGAT-ST at least 2)."""
+    RawGAT-ST at least 2).  In train mode the scores are taken of the
+    input after dropout ``dropout_p``; the kept features are not dropped."""
 
-    def __init__(self, in_dim: int, k: float, min_nodes: int = 1):
+    def __init__(self, in_dim: int, k: float, min_nodes: int = 1,
+                 dropout_p: float = 0.3):
         super().__init__()
         self.k = k
         self.min_nodes = min_nodes
+        self.dropout_p = dropout_p
         self.proj = tnn.Linear(in_dim, 1)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        scores = torch.sigmoid(self.proj(h))                  # (B,N,1)
+    def forward(self, h: torch.Tensor, rngs: Optional[nn.RngStream] = None
+                ) -> torch.Tensor:
+        z = nn.stream_dropout(rngs, h, self.dropout_p, self.training)
+        scores = torch.sigmoid(self.proj(z))                  # (B,N,1)
         n_keep = max(int(h.shape[1] * self.k), self.min_nodes)
         idx = torch.topk(scores[..., 0], n_keep, dim=1, sorted=True).indices
         h = h * scores
@@ -192,8 +240,11 @@ class ResidualBlock(tnn.Module):
     MaxPool (1,3).
 
     ``bn1`` (absent in the first block) is kept so the checkpoints load and
-    the parameter counts match, but eval never uses it: the reference
-    computes bn1 + selu and then convolves the raw input.
+    the parameter counts match: the reference computes bn1 + selu and then
+    convolves the raw input.  So eval never uses it, and in train mode it
+    runs on the input only to move its running statistics; its output is
+    thrown away, so its weight and bias get no gradient (``.grad`` stays
+    ``None``) and torch's optimizers skip them, as the reference's did.
     """
 
     def __init__(self, in_ch: int, out_ch: int, first: bool):
@@ -208,11 +259,65 @@ class ResidualBlock(tnn.Module):
             if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and hasattr(self, "bn1"):
+            with torch.no_grad():       # output discarded, state is real
+                nn.batch_norm(self.bn1, x, axis=1)
         out = nn.selu(nn.batch_norm(self.bn2, self.conv1(x), axis=1))
         out = self.conv2(out)
         identity = (x if self.conv_downsample is None
                     else self.conv_downsample(x))
         return nn.max_pool(out + identity, (1, 3))
+
+
+@contextlib.contextmanager
+def _bn_state_kept(module: tnn.Module):
+    """Restore ``module``'s BatchNorm buffers on exit: a recomputed forward
+    must not move the running statistics a second time."""
+    bufs = [b for m in module.modules()
+            if isinstance(m, tnn.modules.batchnorm._BatchNorm)
+            for b in m.buffers()]
+    saved = [b.clone() for b in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(bufs, saved):
+                b.copy_(v)
+
+
+def _remat_block(block: tnn.Module, e: torch.Tensor) -> torch.Tensor:
+    """``block(e)`` under ``torch.utils.checkpoint``, with the parameters
+    and buffers the block holds now (a caller's ``functional_call`` may
+    have swapped in bf16 copies) passed in, so the recompute in the
+    backward uses them; the BatchNorm statistics it moves are put back.
+    The buffers go in by closure: an input of the checkpoint must not be
+    changed in place, and BatchNorm changes its statistics."""
+    held = dict(block.named_parameters())
+    names = list(held)
+    buffers = dict(block.named_buffers())
+
+    def run(e, *tensors):
+        return torch.func.functional_call(
+            block, {**buffers, **dict(zip(names, tensors))}, (e,))
+
+    return checkpoint(run, e, *held.values(), use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _bn_state_kept(block)))
+
+
+def run_encoder(blocks, e: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``e`` through ``blocks`` in turn.  With ``remat`` in a train-mode
+    forward that records gradients, each block is rematerialised in the
+    backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint``): the same math, the early blocks' large activations
+    not kept; the recompute leaves the running statistics as the forward
+    left them."""
+    for block in blocks:
+        if remat and block.training and torch.is_grad_enabled():
+            e = _remat_block(block, e)
+        else:
+            e = block(e)
+    return e
 
 
 def encoder_plan(filts) -> list:

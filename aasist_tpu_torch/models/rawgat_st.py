@@ -1,4 +1,5 @@
-"""RawGAT-ST eval forward (counterpart of ``aasist_tpu/models/rawgat_st.py``).
+"""RawGAT-ST forward, eval and train (counterpart of
+``aasist_tpu/models/rawgat_st.py``).
 
 The sinc frontend (AASIST's: 70 x 129, |.|, maxpool (3,3), BN, SELU) feeds
 TWO residual encoders.  Each view: max|e| -> GAT (temperature 1) -> graph
@@ -11,22 +12,25 @@ The reference's naming of the views is kept, swapped against AASIST's:
 "T" is max over TIME (spectral nodes, 23 -> 14 kept), "S" max over
 FREQUENCY (temporal nodes, 29 -> 23 kept).  ``proj_T`` (14 -> 12) and
 ``proj_S`` (23 -> 12) fix those node counts, so the model takes 64,600
-samples with ``filts[0]`` 70, whatever its channel widths.
+samples with ``filts[0]`` 70, whatever its channel widths.  Train mode:
+batch-statistics BatchNorm in both encoders and the graph layers, the
+graph layers' dropouts and ``freq_aug``, as AASIST's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn as tnn
 
+from aasist_tpu_torch import nn
 from aasist_tpu_torch.models import layers as L
 from aasist_tpu_torch.models.aasist import SincFrontendModel
 
 
 class RawGatStModel(SincFrontendModel):
-    """Eval-only RawGAT-ST; ``use_fused_frontend`` as AASIST's."""
+    """RawGAT-ST; ``use_fused_frontend`` as AASIST's."""
 
     def __init__(self, model_config: Dict[str, Any]):
         super().__init__(model_config)
@@ -47,23 +51,30 @@ class RawGatStModel(SincFrontendModel):
         self.proj_S = tnn.Linear(23, 12)
         self.proj_ST = tnn.Linear(16, 1)
         self.out_layer = tnn.Linear(7, 2)
-        self.eval()          # only the eval forward exists in this port
+        self.eval()
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, *,
+                rngs: Optional[nn.RngStream] = None, freq_aug: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, 64600) waveform -> (proj_ST output (B, 7), logits (B, 2))."""
-        h = self.frontend(L.eval_input(self, x))
-        e_t = e_s = h
+        x, bank = L.model_input(self, x, rngs, freq_aug)
+        e_t = e_s = self.frontend(x, bank)
         for block_t, block_s in zip(self.encoder_T, self.encoder_S):
             e_t, e_s = block_t(e_t), block_s(e_s)
         # "T": max over time -> spectral nodes (B, F, C)
         pool_t = self.pool_T(self.GAT_layer_T(
-            e_t.abs().amax(dim=3).transpose(1, 2)))            # (B,14,32)
+            e_t.abs().amax(dim=3).transpose(1, 2), rngs), rngs)  # (B,14,32)
         out_t = self.proj_T(pool_t.transpose(1, 2))            # (B,32,12)
         # "S": max over frequency -> temporal nodes (B, T, C)
         pool_s = self.pool_S(self.GAT_layer_S(
-            e_s.abs().amax(dim=2).transpose(1, 2)))            # (B,23,32)
+            e_s.abs().amax(dim=2).transpose(1, 2), rngs), rngs)  # (B,23,32)
+        if pool_s.shape[1] != self.proj_S.in_features:
+            raise ValueError(
+                f"RawGAT-ST takes {self.config.get('nb_samp', 64600)}-sample "
+                f"inputs: proj_S reads {self.proj_S.in_features} temporal "
+                f"nodes, this input leaves {pool_s.shape[1]} (to train, "
+                "set the config's train_fixed_length to 64600)")
         out_s = self.proj_S(pool_s.transpose(1, 2))            # (B,32,12)
-        st = self.GAT_layer_ST((out_t * out_s).transpose(1, 2))
-        proj_st = self.proj_ST(self.pool_ST(st))[..., 0]       # (B, 7)
+        st = self.GAT_layer_ST((out_t * out_s).transpose(1, 2), rngs)
+        proj_st = self.proj_ST(self.pool_ST(st, rngs))[..., 0]  # (B, 7)
         return proj_st, self.out_layer(proj_st)

@@ -1,4 +1,5 @@
-"""RawNet2 eval forward (counterpart of ``aasist_tpu/models/rawnet2.py``).
+"""RawNet2 forward, eval and train (counterpart of
+``aasist_tpu/models/rawnet2.py``).
 
 A 1-D sinc frontend (20 filters x 1,025 taps) -> |.| -> maxpool 3 -> BN ->
 SELU, (B, 20, 21192) at 64,600 samples; six 1-D residual blocks, each
@@ -10,8 +11,10 @@ block's channel means) -> (B, 128, 29); ``bn_before_gru`` -> SELU; a
 log-probability.
 
 Reference quirks kept: each block convolves its raw input, so eval never
-uses ``bn1``; block 2's config entry is mutated in place, so blocks 3-5
-are 128 -> 128.  The GRU is ``torch.nn.GRU`` (cuDNN on a card), whose
+uses ``bn1`` and train mode runs it only to move its running statistics
+(its parameters get no gradient); block 2's config entry is mutated in
+place, so blocks 3-5 are 128 -> 128.  Train mode: batch-statistics
+BatchNorm, ``freq_aug``; the model has no dropout.  The GRU is ``torch.nn.GRU`` (cuDNN on a card), whose
 parameter names (``gru.weight_ih_l0`` ...) are the JAX tree's.  The model
 has no fused-frontend path: the JAX package computes this sinc conv outside
 any Pallas kernel.
@@ -19,7 +22,7 @@ any Pallas kernel.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +35,8 @@ from aasist_tpu_torch.models import layers as L
 class ResidualBlock1d(tnn.Module):
     """conv1 (3) pad 1 -> bn2 -> leaky ReLU (0.3) -> conv2 (3) pad 1;
     a 1x1 downsample conv on the identity when channels change; MaxPool 3.
-    ``bn1`` (absent in the first block) is kept for the checkpoints."""
+    ``bn1`` (absent in the first block) is kept for the checkpoints; in
+    train mode it runs on the input for its statistics, output discarded."""
 
     def __init__(self, in_ch: int, out_ch: int, first: bool):
         super().__init__()
@@ -45,6 +49,9 @@ class ResidualBlock1d(tnn.Module):
                                 if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and hasattr(self, "bn1"):
+            with torch.no_grad():       # output discarded, state is real
+                nn.batch_norm(self.bn1, x, axis=1)
         out = F.leaky_relu(nn.batch_norm(self.bn2, self.conv1(x), axis=1),
                            0.3)
         out = self.conv2(out)
@@ -54,7 +61,7 @@ class ResidualBlock1d(tnn.Module):
 
 
 class RawNet2Model(tnn.Module):
-    """Eval-only RawNet2."""
+    """RawNet2."""
 
     def __init__(self, model_config: Dict[str, Any]):
         super().__init__()
@@ -82,14 +89,15 @@ class RawNet2Model(tnn.Module):
                                   model_config["nb_fc_node"])
         self.fc2_gru = tnn.Linear(model_config["nb_fc_node"],
                                   model_config["nb_classes"])
-        self.eval()          # only the eval forward exists in this port
+        self.eval()
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, *,
+                rngs: Optional[nn.RngStream] = None, freq_aug: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) waveform -> (last_hidden (B, nb_fc_node),
         log-probabilities (B, nb_classes))."""
-        x = L.eval_input(self, x)
-        h = nn.max_pool(L.sinc_frontend(self.filterbank, x).abs(), (3,))
+        x, bank = L.model_input(self, x, rngs, freq_aug)
+        h = nn.max_pool(L.sinc_frontend(bank, x).abs(), (3,))
         h = nn.selu(nn.batch_norm(self.first_bn, h, axis=1))
         for i in range(self.n_blocks):
             hb = getattr(self, f"block{i}")(h)

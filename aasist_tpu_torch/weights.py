@@ -62,7 +62,8 @@ def load_npz(model: torch.nn.Module, path) -> torch.nn.Module:
 def jax_trees(model: torch.nn.Module) -> Tuple[Dict[str, Any],
                                                Dict[str, Any]]:
     """``model``'s (params, state) as the JAX package's nested trees of
-    float32 numpy arrays: BatchNorm statistics under ``state`` as
+    numpy arrays, each in its tensor's type (bfloat16 and float16, which
+    numpy lacks, as float32): BatchNorm statistics under ``state`` as
     ``mean`` / ``var``, everything else under ``params``;
     ``num_batches_tracked`` dropped."""
     names = {v: k for k, v in _STATE_NAMES.items()}
@@ -75,7 +76,10 @@ def jax_trees(model: torch.nn.Module) -> Tuple[Dict[str, Any],
         node = state if leaf in names else params
         for p in path:
             node = node.setdefault(p, {})
-        node[names.get(leaf, leaf)] = value.detach().float().cpu().numpy()
+        value = value.detach().cpu()
+        if value.dtype in (torch.bfloat16, torch.float16):
+            value = value.float()
+        node[names.get(leaf, leaf)] = value.numpy()
     return params, state
 
 

@@ -78,8 +78,29 @@ Phases, each of which raises (exit code 1) on failure:
      bf16 with the frontend kernel to the bf16 gate and bit for bit to a
      Scorer's scores of the same rows, AASIST-Robust's f32 kernel to its
      f32 run (numbers also in chiprun_out/zoo.json);
-  9. one JSON line describing every ported kernel (the frontend kernels'
-     launches on the zoo's paths under "zoo_launches"), the card's line,
+  9. training on the card: the PyTorch reference's train goldens
+     (train_diff_{lr,rawnet2,aasist,aasist2,rawgatst}.npz: gradients,
+     BatchNorm statistics and two Adam steps in float64 at 1e-8, the lr
+     schedules at 1e-12, aasist_tpu_torch/tools/train_golden.py); one train
+     step of configs/AASIST.conf at full width on the golden batch, f32
+     (TF32 off) against float64 and mixed precision against f32, at the
+     gates of TRAIN_TOL, and the f32 step with TF32 on, a control that
+     must fail the f32 gate; the train step's device ms, utt/s, peak memory and
+     idle share at batch 24 of the 96,000-sample window in both precisions,
+     and an f32 dev-scoring batch's ms (printed, not gated); then
+     cli.main(["--config", C, "--output_dir", D]) training configs/
+     AASIST.conf with use_fused_frontend for two epochs on a 240-utterance
+     synthetic corpus (made under chiprun_out/train/, removed after), in
+     f32 and in mixed precision, with the launch counts reset before and
+     read after each run: the train steps launch no kernel and each
+     scoring batch launches the f32 frontend kernel once, the losses are
+     finite, bn1 of encoder blocks 1-5 stays at its initial values, every
+     file is written, --eval of weights/swa.npz reproduces the final eval
+     scores, and --resume of a one-epoch run reaches the same step and
+     epoch (numbers also in chiprun_out/train.json);
+ 10. one JSON line describing every ported kernel (the frontend kernels'
+     launches on the zoo's paths under "zoo_launches", every kernel's in
+     phase 9's training runs under "train_launches"), the card's line,
      and last the device JSON line.
 """
 
@@ -387,7 +408,7 @@ def bf16_gate_readings(corpus: str, waves, f32, card: str) -> None:
     model = eval_model().to(torch.bfloat16)
     read = {}
     for way, frontend in ways.items():
-        model.frontend = lambda x, f=frontend: f(model, x)
+        model.frontend = lambda x, bank, f=frontend: f(model, x)
         with torch.inference_mode():
             got = torch.cat([model(rows[i:i + 128])[1][:, 1]
                              for i in range(0, len(rows), 128)])
@@ -510,7 +531,7 @@ def eval_pipeline(card: str, path_kernels: dict, keep=()) -> dict:
             # and copy to the card, and one report (the CLI writes two)
             t0 = time.perf_counter()
             n_rows = sum(len(x) for x, _, _ in
-                         cli.build_loaders(cfg, "cuda").eval)
+                         cli.build_loaders(cfg, "cuda", eval_only=True).eval)
             t_batcher = time.perf_counter() - t0
             t0 = time.perf_counter()
             model = eval_model().to(torch.bfloat16)
@@ -923,6 +944,349 @@ def zoo_phase(card: str, path_kernels: dict, requests, corpus: Path):
             if w.suffix in (".pth", ".npz"):
                 w.unlink()
     return launches, report
+
+
+# Training (phase 9).  The one-step gates on configs/AASIST.conf at full
+# width, the golden batch of train_diff_aasist.npz (4 x 64,600, a loss of
+# ~11.6: noise the pretrained model calls spoof), dropout off, read as
+# |g - g_ref| / |g_ref| over all gradients as one vector and |loss -
+# loss_ref| / |loss_ref|:
+#   f32 (TF32 off) against the card's float64 step.  block 0's conv
+# weight gradients sum 2 million f32 products each, so the f32 gradients
+# stand ~sqrt(2e6) f32 ulps off.  Sound readings: the card 3.103e-4 on the
+# gradients (max over elements 1.564e-3 of max|g|, at
+# encoder.0.conv2.weight) and 6.489e-8 on the loss (NVIDIA H100 80GB
+# HBM3, 700.00 W); the CPU 1.566e-4 and 1.826e-7 (chip_smoke.
+# train_step_readings on 8 cores).  The control is the same step with
+# cuDNN's and cuBLAS's TF32 on (operands rounded to a 10-bit mantissa): the
+# card 2.258e-2 on the gradients (max over elements 1.025e-2, at
+# encoder.0.conv1.weight) and 4.096e-4 on the loss.  The gates, 3e-3 and
+# 1e-4, are ten and a thousand times the sound readings and a seventh and a
+# quarter of the control's, which must fail them; a wrong or missing term
+# moves a gradient by its own size.
+#   bf16 mixed precision against f32: every op of the forward and backward
+# rounds to 2^-9 relative, BatchNorm's weights and statistics included (the
+# JAX package's cast).  Sound readings: the card 2.147e-1 on the gradients
+# (max over elements 3.856e-1, at GAT_layer_S.att_proj.weight) and 1.872e-2
+# on the loss.  The gates are 0.5 (a gradient of the wrong sign reads 2, a
+# missing one 1) and the JAX package's 10 % on the loss
+# (tests/test_mixed_precision.py).
+TRAIN_TOL = {"float32": (3e-3, 1e-4), "mixed_precision": (0.5, 0.1)}
+# The training entry point's corpus (aasist_tpu_torch/data/synthetic.py,
+# WAV): 240 train utterances, ten steps an epoch at the stock batch of 24,
+# each cropped or tiled to the 96,000-sample train window; 48 dev and 48
+# eval, two scoring batches each at the train batch.
+TRAIN_CORPUS = dict(n_train=240, n_dev=48, n_eval=48, seed=101,
+                    audio_format="wav")
+TRAIN_RUNS = {"float32": {}, "mixed_precision": {"mixed_precision": "True"}}
+
+
+def train_step_readings(device: str, card: str) -> dict:
+    """One train step of configs/AASIST.conf with the pretrained weights on
+    the golden batch, in float64, float32, float32 with TF32 on (the
+    control, which must fail the f32 gate) and mixed precision, through
+    ``train/loop.py:make_train_step`` (dropout off, Adam of the config);
+    returns {way: (gradient reading, loss reading, ...)} against the gates
+    of TRAIN_TOL."""
+    import numpy as np
+    import torch
+
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.registry import build_model
+    from aasist_tpu_torch.train.loop import make_train_step
+    from aasist_tpu_torch.train.losses import weighted_cce
+    from aasist_tpu_torch.train.optim import create_optimizer, make_schedule
+    from aasist_tpu_torch.weights import load_npz
+
+    cfg = load_config(ROOT / "configs" / "AASIST.conf")
+    data = np.load(ROOT / "tests" / "goldens" / "train_diff_aasist.npz")
+    cfg.optim_config.epochs, cfg.optim_config.steps_per_epoch = 1, 1
+    grads, losses = {}, {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    for way, dtype, mp in (("float64", torch.float64, False),
+                           ("float32", torch.float32, False),
+                           ("tf32", torch.float32, False),
+                           ("mixed_precision", torch.float32, True)):
+        model = load_npz(build_model(cfg.model_config),
+                         ROOT / "checkpoints" / "AASIST.npz")
+        model = model.to(device, dtype).train()
+        optimizer = create_optimizer(cfg.optim_config, model.parameters())
+        step = make_train_step(
+            model, lambda lg, y, d: weighted_cce(lg, y), optimizer,
+            make_schedule(cfg.optim_config), seed=0, freq_aug=False,
+            use_duration=False, mixed_precision=mp, dropout=False)
+        x = torch.from_numpy(data["x1"]).to(device, dtype)
+        y = torch.from_numpy(data["y1"]).to(device)
+        if way == "tf32":
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            loss, _ = step(x, y, torch.ones(len(y), device=device), 0)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+        losses[way] = loss.item()
+        grads[way] = {n: p.grad.double().cpu() for n, p
+                      in model.named_parameters() if p.grad is not None}
+    out = {}
+    for way, ref in (("float32", "float64"), ("tf32", "float64"),
+                     ("mixed_precision", "float32")):
+        names = sorted(grads[ref])
+        got = torch.cat([grads[way][n].flatten() for n in names])
+        want = torch.cat([grads[ref][n].flatten() for n in names])
+        err = (got - want).abs()
+        worst = names[int(torch.tensor([
+            (grads[way][n] - grads[ref][n]).abs().max()
+            for n in names]).argmax())]
+        out[way] = ((err.norm() / want.norm()).item(),
+                    abs(losses[way] - losses[ref]) / abs(losses[ref]),
+                    (err.max() / want.abs().max()).item(), worst)
+        g_tol, l_tol = TRAIN_TOL["float32" if way == "tf32" else way]
+        print(f"[train] one step, {way} against {ref}: gradients "
+              f"|g - g_ref| / |g_ref| {out[way][0]:.3e} (gate {g_tol:g}), "
+              f"max|g - g_ref| / max|g_ref| {out[way][2]:.3e} (at {worst})"
+              f", loss {out[way][1]:.3e} relative (gate {l_tol:g}); loss "
+              f"{losses[way]:.8f}  [{card}]")
+        passes = out[way][0] <= g_tol and out[way][1] <= l_tol
+        if way == "tf32":
+            check(not passes, f"the TF32 control passes the f32 gate, which "
+                  f"so cannot tell a full-f32 step from it: {out[way]}")
+        else:
+            check(passes, f"one train step, {way} against {ref}: "
+                  f"{out[way]}")
+    check(set(grads["float32"]) == set(grads["float64"])
+          == set(grads["tf32"]) == set(grads["mixed_precision"]),
+          "the three steps give gradients to different leaves")
+    return out
+
+
+def train_step_timing(card: str) -> dict:
+    """Device ms of one train step of configs/AASIST.conf at batch 24 of
+    the 96,000-sample window (CUDA events, 5 steps after 2), train utt/s,
+    peak memory, the device's idle share over 3 steps (torch.profiler),
+    and one f32 dev-scoring batch (24 x 64,600, the frontend kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.registry import build_model
+    from aasist_tpu_torch.tools._common import cuda_ms
+    from aasist_tpu_torch.train.loop import make_train_step
+    from aasist_tpu_torch.train.losses import weighted_cce
+    from aasist_tpu_torch.train.optim import create_optimizer, make_schedule
+
+    cfg = load_config(ROOT / "configs" / "AASIST.conf")
+    cfg.optim_config.epochs, cfg.optim_config.steps_per_epoch = 1, 10
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(24, 96000, generator=g, device="cuda") * 0.05
+    y = (torch.arange(24, device="cuda") % 2)
+    d = torch.full((24,), 6.0, device="cuda")
+    out = {}
+    for way, mp in (("float32", False), ("mixed_precision", True)):
+        torch.manual_seed(0)
+        model = build_model(cfg.model_config).cuda().train()
+        optimizer = create_optimizer(cfg.optim_config, model.parameters())
+        step = make_train_step(
+            model, lambda lg, yy, dd: weighted_cce(lg, yy), optimizer,
+            make_schedule(cfg.optim_config), seed=0, freq_aug=False,
+            use_duration=False, mixed_precision=mp)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(x, y, d, 0), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(3):
+                step(x, y, d, i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.self_device_time_total / 3e3, e.count // 3,
+                        e.key) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        busy = 3 * sum(r[0] for r in rows)
+        idle = max(0.0, 1 - busy / wall)
+        out[way] = {"step_ms": ms, "utt_per_s": 24e3 / ms,
+                    "peak_gib": peak, "idle_share": idle,
+                    "top_kernels": [list(r) for r in rows[:12]]}
+        print(f"[train] step {way}, batch 24 x 96000: {ms:.3f} ms device, "
+              f"{24e3 / ms:.1f} utt/s, peak {peak:.2f} GiB; 3 steps under "
+              f"the profiler: window {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms, idle share {idle:.3f}  [{card}]")
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        with open(ROOT / "chiprun_out" / f"profile_train_{way}.txt",
+                  "w") as f:
+            f.write(f"{card}\nms a step by kernel, 3 steps, window "
+                    f"{wall:.3f} ms, busy {busy:.3f} ms\n")
+            for k_ms, n, key in rows:
+                f.write(f"{k_ms:10.3f} ms  {n:5d}x  {key}\n")
+        for k_ms, n, key in rows[:10]:
+            print(f"[train]   {k_ms:9.3f} ms a step {n:4d}x  {key[:90]}")
+    model.eval().use_fused_frontend = True
+    xs = torch.randn(24, 64600, generator=g, device="cuda") * 0.05
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(xs), iters=5)
+    out["dev_batch_ms"] = ms
+    print(f"[train] dev scoring, f32 with the frontend kernel, batch 24 x "
+          f"64600: {ms:.3f} ms a batch  [{card}]")
+    return out
+
+
+def train_entry_point(card: str, path_kernels: dict) -> dict:
+    """Phase 9's training through ``cli.main(["--config", C,
+    "--output_dir", D])``: configs/AASIST.conf at full width with
+    ``use_fused_frontend``, two epochs on TRAIN_CORPUS (made under
+    chiprun_out/train/, removed after), in f32 and in mixed precision, the
+    kernel wrappers' launch counts set to 0 just before each run and read
+    just after.  Gates: the train steps launch no kernel and every scoring
+    batch (dev each epoch, eval on each new best dev EER and at the end)
+    launches the f32 frontend kernel once; every epoch's loss finite; the
+    bn1 of encoder blocks 1-5 at its initial weight 1 and bias 0; every
+    file written; ``--eval`` of ``weights/swa.npz`` within TOL_EVAL_SCORES
+    of the run's final eval scores; ``--resume`` of a one-epoch f32 run
+    reaching the straight run's step and epoch and writing the final
+    files.  Returns each run's launches and numbers."""
+    import contextlib
+    import functools
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from aasist_tpu_torch import cli
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.data import synthetic
+    from aasist_tpu_torch.evaluation.scorefile import read_score_file
+    from aasist_tpu_torch.train import loop
+
+    def run_cli(argv):
+        printed = io.StringIO()
+        for fn in path_kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"cli.main({argv}) returned {rc}")
+        return printed.getvalue(), wall, {
+            k: fn.launches for k, fn in path_kernels.items()}
+
+    out = ROOT / "chiprun_out" / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    corpus = out / "LA"
+    stock = json.loads((ROOT / "configs" / "AASIST.conf").read_text())
+    report = {}
+    try:
+        t0 = time.perf_counter()
+        synthetic.generate(corpus, **TRAIN_CORPUS)
+        print(f"[train] corpus generated: {TRAIN_CORPUS}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        for run, extra in TRAIN_RUNS.items():
+            conf = copy.deepcopy(stock)
+            conf.update(database_path=str(corpus), num_epochs=2, **extra)
+            conf["model_config"]["use_fused_frontend"] = True
+            path = out / f"AASIST_{run}.conf"
+            path.write_text(json.dumps(conf, indent=1))
+            cfg = load_config(path)
+            printed, wall, counts = run_cli(
+                ["--config", str(path), "--output_dir", str(out / "exp")])
+            run_dir = out / "exp" / cfg.model_tag(path.stem)
+            for name in ("config.conf", "metrics.jsonl", "metric_log.txt",
+                         cfg.eval_output, "t-DCF_EER.txt",
+                         "weights/best.npz", "weights/swa.npz",
+                         "metrics/dev_score.txt",
+                         "metrics/dev_t-DCF_EER_0epo.txt",
+                         "metrics/dev_t-DCF_EER_1epo.txt",
+                         "train_state/weights.npz",
+                         "train_state/opt_state.npz",
+                         "train_state/meta.json"):
+                check((run_dir / name).is_file(), f"{run}: no {name}")
+            meta = json.loads((run_dir / "train_state/meta.json")
+                              .read_text())
+            check((meta["step"], meta["epoch"]) == (20, 1),
+                  f"{run}: train state at {meta}")
+            scalars = [json.loads(line) for line in
+                       (run_dir / "metrics.jsonl").read_text().splitlines()]
+            losses = [s["value"] for s in scalars if s["name"] == "loss"]
+            check(len(losses) == 2 and bool(np.isfinite(losses).all()),
+                  f"{run}: epoch losses {losses}")
+            with np.load(run_dir / "train_state/weights.npz") as w:
+                for i in range(1, 6):
+                    pre = f"params/encoder/{i}/bn1/"
+                    check(bool((w[pre + "weight"] == 1).all()
+                               and (w[pre + "bias"] == 0).all()),
+                          f"{run}: encoder block {i}'s bn1 moved")
+            n_best = len(list((run_dir / "metrics").glob("t-DCF_EER_*")))
+            batches = 2 * 2 + 2 * (n_best + 1)
+            for name, n in counts.items():
+                want = batches if name == "fused_frontend_fma" else 0
+                check(n == want, f"{run}: {name} launched {n} times, want "
+                      f"{want} (2 epochs x 2 dev batches, {n_best + 1} x 2 "
+                      "eval batches; train steps none)")
+            epochs = [s["value"] for s in scalars
+                      if s["name"] == "epoch_seconds"]
+            last = printed.strip().splitlines()[-1]
+            check(last.startswith("Exp FIN. EER: "), f"{run}: {last!r}")
+            # the SWA weights through --eval: the run's final scores
+            printed_e, _, counts_e = run_cli(
+                ["--config", str(path), "--eval", "--eval_model_weights",
+                 str(run_dir / "weights/swa.npz"),
+                 "--output_dir", str(out / f"eval_{run}")])
+            got = read_score_file(out / f"eval_{run}"
+                                  / cfg.model_tag(path.stem)
+                                  / cfg.eval_output)
+            want = read_score_file(run_dir / cfg.eval_output)
+            check([r[:3] for r in got] == [r[:3] for r in want],
+                  f"{run}: --eval scored other utterances")
+            d_eval = float(np.abs(np.asarray([r[3] for r in got])
+                                  - [r[3] for r in want]).max())
+            check(d_eval <= TOL_EVAL_SCORES,
+                  f"{run}: --eval of swa.npz off the final scores by "
+                  f"{d_eval}")
+            report[run] = {"launches": {k: v for k, v in counts.items()
+                                        if v},
+                           "wall_s": wall, "epoch_seconds": epochs,
+                           "losses": losses, "final": last,
+                           "swa_eval_max_abs_diff": d_eval,
+                           "eval_launches": {k: v for k, v in
+                                             counts_e.items() if v}}
+            per_epoch = ", ".join(f"{e:.2f}" for e in epochs)
+            print(f"[train] {run}: cli.main 2 epochs of 10 steps in "
+                  f"{wall:.1f} s (epochs {per_epoch} s), losses {losses}; "
+                  f"launches {report[run]['launches']}"
+                  f"; --eval of swa.npz within {d_eval:.3e}; {last}  "
+                  f"[{card}]")
+        # --resume: one epoch of the f32 run, then the rest
+        path = out / "AASIST_float32.conf"
+        one = functools.partial(loop.run_training, max_epochs=1)
+        real = loop.run_training
+        loop.run_training = one
+        try:
+            run_cli(["--config", str(path), "--output_dir",
+                     str(out / "resume")])
+        finally:
+            loop.run_training = real
+        printed, wall, _ = run_cli(["--config", str(path), "--output_dir",
+                                    str(out / "resume"), "--resume"])
+        run_dir = out / "resume" / load_config(path).model_tag(path.stem)
+        meta = json.loads((run_dir / "train_state/meta.json").read_text())
+        check((meta["step"], meta["epoch"]) == (20, 1)
+              and "epoch 000" not in printed and "epoch 001" in printed,
+              f"--resume: train state at {meta}")
+        for name in ("weights/swa.npz", "t-DCF_EER.txt",
+                     "eval_scores_using_best_dev_model.txt"):
+            check((run_dir / name).is_file(), f"--resume: no {name}")
+        report["resume"] = {"meta": meta, "wall_s": wall,
+                            "final": printed.strip().splitlines()[-1]}
+        print(f"[train] --resume after epoch 0: step {meta['step']}, epoch "
+              f"{meta['epoch']}, {wall:.1f} s; {report['resume']['final']}")
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+    return report
 
 
 def main() -> int:
@@ -1651,9 +2015,9 @@ def main() -> int:
             return
         bn = model.first_bn
 
-        def fused_stack(x):
+        def fused_stack(x, bank):
             z = fused_frontend_padded(
-                x, model.filterbank, {"weight": bn.weight, "bias": bn.bias},
+                x, bank, {"weight": bn.weight, "bias": bn.bias},
                 {"mean": bn.running_mean, "var": bn.running_var})
             return fused_block0_mma(z, model.encoder[0])
 
@@ -1895,6 +2259,33 @@ def main() -> int:
                 for arch, runs in zoo_launches.items()}
 
     # ---------------------------------------------------------------- 9
+    from aasist_tpu_torch.tools import train_golden
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    readings = train_golden.run(
+        ["lr", "rawnet2", "aasist", "aasist2", "rawgatst"], device="cuda")
+    for label, d, where, gate in readings:
+        check(d <= gate, f"train golden {label}: max|diff| {d:.3e} at "
+              f"{where or '-'} over its gate {gate:g}")
+    print(f"[train] the reference's train goldens in float64 on the card: "
+          f"{len(readings)} readings within their gates, "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    step_readings = train_step_readings("cuda", card)
+    torch.cuda.empty_cache()
+    timing = train_step_timing(card)
+    torch.cuda.empty_cache()
+    train_report = train_entry_point(card, path_kernels)
+    print(f"[train] phase 9: {time.perf_counter() - t0:.1f} s")
+    (ROOT / "chiprun_out" / "train.json").write_text(json.dumps(
+        {"card": card, "goldens": readings, "one_step": step_readings,
+         "timing": timing, "entry_point": train_report}, indent=1))
+
+    def train_runs(kernel):
+        """``kernel``'s launches in phase 9's training runs, by run."""
+        return {run: train_report[run]["launches"].get(kernel, 0)
+                for run in TRAIN_RUNS}
+
+    # ---------------------------------------------------------------- 10
     # the Scorer's kernels: each entry's launches are those of the main-path
     # run that takes it (phase 4: the bf16 paths for the new kernels and
     # the older bf16 block 0, the f32 paths for the CUDA-core kernels, whose
@@ -2025,6 +2416,15 @@ def main() -> int:
             "source": f"aasist_tpu_torch/csrc/{src}.cu", "replaces": where,
             "launches": probe_launches[name], **variants[head],
             "variant": head, "dtype": "bfloat16", "variants": variants})
+    # every kernel's launches in phase 9's training runs, under the name of
+    # the wrapper that counts them (the f32 frontend on the scoring
+    # batches, nothing in the train steps)
+    wrappers = {"fused_frontend": "fused_frontend_fma",
+                "fused_frontend_padded": "fused_frontend_padded_fma",
+                "fused_block0": "fused_block0_mma"}
+    for entry in kernels:
+        entry["train_launches"] = train_runs(
+            wrappers.get(entry["name"], entry["name"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

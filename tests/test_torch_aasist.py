@@ -150,12 +150,28 @@ def test_weights_load_strictly(small):
     {**SMALL_CONF, "res2net_width": 14,        # AASIST2's encoder
      "filts": [70, [1, 16], [16, 16], [16, 16], [16, 16]]},
 ])
-def test_unported_models_raise(conf):
-    """The zoo's eval forwards are ported; their training forward is not
-    (tests/test_torch_zoo_models.py holds the eval ones)."""
+def test_zoo_train_forwards_update_bn_state(conf):
+    """In train mode the forward runs, with its dropouts drawn from the
+    stream, finite, and moves every BatchNorm's running statistics (the
+    residual blocks' discarded bn1 included); back in eval mode a forward
+    moves none (tests/test_torch_train_*.py hold the train step)."""
+    from aasist_tpu_torch import nn
+
     model = build_model(conf).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros((1, 4000)))
+    before = {k: v.clone() for k, v in model.named_buffers()
+              if "running" in k}
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 8000)).astype(np.float32) * 0.05)
+    out = model(x, rngs=nn.RngStream((1, 2)), freq_aug=True)
+    assert all(torch.isfinite(o).all() for o in out)
+    after = dict(model.named_buffers())
+    assert all(not torch.equal(after[k], v) for k, v in before.items())
+    model.eval()
+    moved = {k: v.clone() for k, v in model.named_buffers()}
+    with torch.no_grad():
+        model(x)
+    assert all(torch.equal(v, moved[k])
+               for k, v in model.named_buffers())
 
 
 def _scorer(small, **kw):

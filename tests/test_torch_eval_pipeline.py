@@ -4,13 +4,15 @@
 weights, chained and pipelined; the whole pipeline (FLAC decode, batcher,
 forward, score file, metrics) through ``cli.main`` on the seed-77 corpus
 with the pretrained AASIST in f32, held to the e2e golden at the gates of
-``tests/test_e2e_differential.py``; the entry point's refusals.
+``tests/test_e2e_differential.py``; the entry point's refusals, its
+training branch and ``--resume`` beside ``--eval``.
 """
 
 import contextlib
 import io
 import json
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +33,7 @@ from aasist_tpu_torch.evaluation.metrics import calculate_tdcf_eer
 from aasist_tpu_torch.evaluation.scorefile import read_score_file
 from aasist_tpu_torch.registry import build_model
 from aasist_tpu_torch.train.loop import make_eval_step, produce_scores
-from aasist_tpu_torch.weights import load_jax_params, load_npz
+from aasist_tpu_torch.weights import load_jax_params, load_npz, save_npz
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDENS = ROOT / "tests" / "goldens"
@@ -224,20 +226,53 @@ def test_cli_without_a_card_raises(tmp_path):
     assert not (tmp_path / "exp").exists()
 
 
-def test_cli_without_eval_raises(tmp_path):
-    conf = _conf(tmp_path, tmp_path / "LA")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--config", str(conf), "--device", "cpu",
-                  "--output_dir", str(tmp_path / "exp")])
-    assert not (tmp_path / "exp").exists()
+def test_cli_trains_without_eval(tmp_path, monkeypatch):
+    """Without ``--eval`` the entry point trains (one epoch of a narrow
+    AASIST here; tests/test_torch_train_cli.py holds the run)."""
+    # TensorBoard, where it imports here, pulls in TensorFlow (~13 s)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    synthetic.generate(tmp_path / "LA", n_train=4, n_dev=4, n_eval=4,
+                       seed=5, audio_format="wav")
+    conf = json.loads(_conf(tmp_path, tmp_path / "LA").read_text())
+    conf.update(num_epochs=1, batch_size=2, train_fixed_length=16000,
+                eval_all_best="False")
+    conf["model_config"].update(SMALL_CONF)
+    (tmp_path / "AASIST.conf").write_text(json.dumps(conf))
+    rc, out = _run_cli(["--config", str(tmp_path / "AASIST.conf"),
+                        "--device", "cpu", "--output_dir",
+                        str(tmp_path / "exp")])
+    assert rc == 0
+    assert out.strip().splitlines()[-1].startswith("Exp FIN. EER: ")
+    run_dir = tmp_path / "exp" / "LA_AASIST_ep1_bs2"
+    assert json.loads((run_dir / "train_state" / "meta.json").read_text())[
+        "step"] == 2
+    assert (run_dir / "weights" / "swa.npz").is_file()
 
 
-def test_cli_resume_raises(tmp_path):
-    conf = _conf(tmp_path, tmp_path / "LA")
-    with pytest.raises(NotImplementedError, match="--resume"):
-        cli.main(["--config", str(conf), "--eval", "--resume", "--device",
-                  "cpu", "--output_dir", str(tmp_path / "exp")])
-    assert not (tmp_path / "exp").exists()
+def test_cli_eval_ignores_resume(tmp_path):
+    """``--eval --resume`` scores as ``--eval`` does and trains nothing,
+    as the JAX package's entry point."""
+    synthetic.generate(tmp_path / "LA", n_train=2, n_dev=2, n_eval=4,
+                       seed=6, audio_format="wav")
+    conf = json.loads(_conf(tmp_path, tmp_path / "LA").read_text())
+    conf["model_config"].update(SMALL_CONF)
+    conf["model_path"] = str(tmp_path / "small.npz")
+    save_npz(build_model(SMALL_CONF), tmp_path / "small.npz")
+    (tmp_path / "AASIST.conf").write_text(json.dumps(conf))
+    conf = tmp_path / "AASIST.conf"
+    outs = []
+    for extra in ([], ["--resume"]):
+        rc, out = _run_cli(["--config", str(conf), "--eval", "--device",
+                            "cpu", "--output_dir",
+                            str(tmp_path / f"exp{len(extra)}")] + extra)
+        assert rc == 0
+        outs.append(out.strip().splitlines()[-1])
+    assert outs[0] == outs[1] and outs[1].startswith("DONE. EER: ")
+    run_dir = tmp_path / "exp1" / "LA_AASIST_ep100_bs24"
+    assert not (run_dir / "train_state").exists()
+    assert ((run_dir / "eval_scores_using_best_dev_model.txt").read_text()
+            == (tmp_path / "exp0" / "LA_AASIST_ep100_bs24"
+                / "eval_scores_using_best_dev_model.txt").read_text())
 
 
 def test_only_converted_weights_load(tmp_path):
@@ -317,7 +352,7 @@ def test_the_512_goldens_utterance_77_is_a_node_order_tie(corpus99,
     pool = model.pool_hS1
     kept = []
 
-    def swapped(h):
+    def swapped(h, rngs=None):      # the pool's forward takes the stream
         s = torch.sigmoid(pool.proj(h))[..., 0]
         n_keep = max(int(h.shape[1] * pool.k), 1)
         idx = torch.topk(s, n_keep, dim=1, sorted=True)

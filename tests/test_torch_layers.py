@@ -89,7 +89,7 @@ def test_eval_batch_norm(shape, axis):
          "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
     ref, _ = jnn.batch_norm(p, s, jnp.asarray(x), axis=axis % len(shape),
                             train=False)
-    bn = torch.nn.BatchNorm1d(c)
+    bn = torch.nn.BatchNorm1d(c).eval()
     load_jax_params(bn, p, s)
     _close(tnn.batch_norm(bn, _t(x), axis=axis), ref)
 
@@ -117,7 +117,7 @@ def test_graph_attention():
     x = rng.standard_normal((3, 9, 12)).astype(np.float32)
     ref, _ = JL.gat_apply(p, s, jnp.asarray(x), temperature=2.0,
                           train=False, rngs=RngStream(None))
-    mod = load_jax_params(TL.GraphAttention(12, 16, 2.0), p, s)
+    mod = load_jax_params(TL.GraphAttention(12, 16, 2.0).eval(), p, s)
     with torch.no_grad():
         _close(mod(_t(x)), ref)
 
@@ -135,7 +135,8 @@ def test_htrg_graph_attention(with_master):
         p, s, jnp.asarray(x1), jnp.asarray(x2),
         None if m is None else jnp.asarray(m), temperature=100.0,
         train=False, rngs=RngStream(None))
-    mod = load_jax_params(TL.HtrgGraphAttention(12, 16, 100.0), p, s)
+    mod = load_jax_params(TL.HtrgGraphAttention(12, 16, 100.0).eval(), p,
+                          s)
     with torch.no_grad():
         g1, g2, gm = mod(_t(x1), _t(x2), None if m is None else _t(m))
     _close(g1, r1)
@@ -151,7 +152,7 @@ def test_graph_pool_keeps_order(n, k):
     ref = JL.graph_pool_apply(p, jnp.asarray(h), k=k, min_nodes=1,
                               dropout_p=0.3, train=False,
                               rngs=RngStream(None))
-    mod = load_jax_params(TL.GraphPool(8, k), p, {})
+    mod = load_jax_params(TL.GraphPool(8, k).eval(), p, {})
     with torch.no_grad():
         got = mod(_t(h))
         scores = torch.sigmoid(mod.proj(_t(h)))[..., 0]
@@ -172,7 +173,7 @@ def test_residual_block(cin, cout, first):
     x = rng.standard_normal((2, cin, 7, 40)).astype(np.float32)
     ref, _ = JL.residual_block_apply(p, s, jnp.asarray(x), first=first,
                                      train=False)
-    mod = TL.ResidualBlock(cin, cout, first)
+    mod = TL.ResidualBlock(cin, cout, first).eval()
     assert hasattr(mod, "bn1") == (not first)
     assert (mod.conv_downsample is None) == (cin == cout)
     load_jax_params(mod, p, s)

@@ -279,7 +279,7 @@ def test_the_rawgatst_goldens_utterance_49_is_a_node_order_tie(
 
     pool = model.pool_ST
 
-    def swapped(h):
+    def swapped(h, rngs=None):      # the pool's forward takes the stream
         s = torch.sigmoid(pool.proj(h))[..., 0]
         idx = torch.topk(s, 7, dim=1, sorted=True).indices
         h = h * s[..., None]

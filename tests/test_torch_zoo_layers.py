@@ -76,7 +76,8 @@ def test_res2net_block(in_ch, out_ch, first):
     x = _x((2, in_ch, 6, 30), 5)
     ref, _ = JL.res2net_block_apply(p, s, x, first=first, width=14, scale=8,
                                     train=False)
-    block = TL.Res2NetBlock(in_ch, out_ch, first=first, width=14, scale=8)
+    block = TL.Res2NetBlock(in_ch, out_ch, first=first, width=14,
+                            scale=8).eval()
     if in_ch == 32:
         assert block.sizes == [2] * 13 + [6] and block.scale == 8
     else:
@@ -115,7 +116,8 @@ def test_graph_pool_min_nodes(n, k, min_nodes, kept):
     h = _x((2, n, 16), 10)
     ref = JL.graph_pool_apply(p, h, k=k, min_nodes=min_nodes, dropout_p=0.3,
                               train=False, rngs=RngStream(None))
-    mod = load_jax_params(TL.GraphPool(16, k, min_nodes=min_nodes), p, {})
+    mod = load_jax_params(TL.GraphPool(16, k, min_nodes=min_nodes).eval(),
+                          p, {})
     with torch.inference_mode():
         got = mod(torch.from_numpy(h))
     assert got.shape == (2, kept, 16) == ref.shape

@@ -184,14 +184,28 @@ def test_narrow_model_matches_jax(narrow, arch, fused):
                                    atol=1e-6)
 
 
-def test_robust_denoising_block_has_no_forward(narrow):
-    """It runs only in training, which is not ported: its parameters load,
-    the eval forward never calls it."""
-    model = narrow["AASIST_Robust"][3]
-    assert {"g", "theta", "phi", "W", "bn"} <= {
-        n for n, _ in model.denoising.named_children()}
-    with pytest.raises(NotImplementedError):
-        model.denoising(torch.zeros(1, 12, 5))
+def test_robust_denoising_block_matches_jax(narrow):
+    """The non-local denoising block in train mode (the only mode the
+    model runs it in) against the JAX package's ``_denoise_apply``: its
+    output and its BatchNorm's running statistics, f32 at 1e-5; the eval
+    forward never calls it."""
+    import copy
+
+    from aasist_tpu.models.aasist_robust import _denoise_apply
+
+    _, params, state, model = narrow["AASIST_Robust"]
+    block = copy.deepcopy(model.denoising).train()
+    x = np.random.default_rng(24).standard_normal((3, 12, 5)).astype(
+        np.float32)
+    want, want_s = _denoise_apply(params["denoising"], state["denoising"],
+                                  x, train=True)
+    got = block(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(
+            getattr(block.bn, f"running_{k}").numpy(),
+            np.asarray(want_s["bn"][k]), atol=1e-5, rtol=1e-5)
 
 
 def test_utterance_level_conditioning_fails_as_the_jax_packages():
