@@ -35,7 +35,23 @@ the train steps run stock ops).  Every architecture of the registry runs
 ``--eval_model_weights`` or the config's ``model_path``, as the converted
 ``.npz`` or the reference's ``.pth``.  On a card the ``--eval`` batch is
 the serving batch (``SERVING_BATCH_DEFAULTS``); ``eval_batch_size`` and
-``eval_chain`` (default 1) in the config override.
+``eval_chain`` (default 1) in the config override.  ``use_mixup`` and
+``adv_training`` in the config turn on the robust-training extras
+(``train/loop.py:RobustOptions``).
+
+Data parallelism: under ``torchrun --nproc_per_node N -m
+aasist_tpu_torch.cli --config C [--eval]`` (``WORLD_SIZE`` above 1) each
+rank joins the process group (``parallel/mesh.py:from_env``: NCCL when
+every rank has a card of its own, else Gloo), owns ``cuda:LOCAL_RANK``
+(or the CPU with ``--device cpu``) and decodes only its rows of every
+global batch; a train step and the scores equal one process's on the
+whole batch.  Rank 0 writes the run directory; every rank reads a
+``--resume``.  The eval batch rounds down to a multiple of the world size
+(the JAX package's rule).  A train ``batch_size`` (over
+``grad_accum_steps`` microbatches) that the world size does not divide
+raises, naming the largest world size that does: the JAX package leaves
+the spare devices idle instead, but an idle rank would hang every
+collective of a process group.
 """
 
 from __future__ import annotations
@@ -59,13 +75,31 @@ def default_eval_batch(arch: str, device_type: str, train_bs: int) -> int:
     return SERVING_BATCH_DEFAULTS.get(arch, 128)
 
 
+def check_world(batch_size: int, world: int, grad_accum_steps: int = 1
+                ) -> None:
+    """Raise unless ``world`` ranks split each of the ``grad_accum_steps``
+    microbatches of a train batch evenly, naming the largest world size
+    that does."""
+    if batch_size % (world * grad_accum_steps):
+        fit = max(d for d in range(1, world + 1)
+                  if batch_size % (d * grad_accum_steps) == 0)
+        raise ValueError(
+            f"train batch_size {batch_size} in {grad_accum_steps} "
+            f"microbatch(es) does not split over {world} ranks: run "
+            f"{fit} ranks (the largest world size up to {world} that "
+            "divides it), or change batch_size")
+
+
 def build_loaders(cfg, device_type: str, seed: int = 1234,
-                  eval_only: bool = False):
+                  eval_only: bool = False, rank: int = 0, world: int = 1):
     """The train, dev and eval batchers and trial metadata
     (``train/loop.py:Loaders``; the JAX package's ``build_loaders``).
     Dev and eval score at the train batch, or ``eval_batch_size``;
     ``eval_only`` builds the eval split alone, at ``default_eval_batch``.
-    Train batches are pinned for a card."""
+    Train batches are pinned for a card.  With ``world`` > 1 every batcher
+    yields ``rank``'s rows; the eval batch rounds down to a multiple of
+    ``world`` (at least ``world``), and a train batch that does not split
+    raises (``check_world``)."""
     from aasist_tpu_torch.data import dataset as D
     from aasist_tpu_torch.data import protocol as P
     from aasist_tpu_torch.train.loop import Loaders
@@ -77,15 +111,19 @@ def build_loaders(cfg, device_type: str, seed: int = 1234,
     eval_bs = int(cfg.extras.get("eval_batch_size", default_eval_batch(
         cfg.model_config.get("architecture"), device_type, cfg.batch_size)
         if eval_only else cfg.batch_size))
+    eval_bs = max(world, eval_bs // world * world)
+    shard = {"rank": rank, "world": world}
     ev = D.EvalBatcher(D.AudioStore(cfg.audio_dir("eval")),
                        [e.utt_id for e in eval_entries][:n_ev],
-                       batch_size=eval_bs)
+                       batch_size=eval_bs, **shard)
     if eval_only:
         return Loaders(None, None, ev, {}, P.trial_metadata(eval_entries))
     labels, train_files = P.labels_and_files(
         P.parse_protocol(cfg.protocol_path("train")))
     dev_entries = P.parse_protocol(cfg.protocol_path("dev"))
     dcs = cfg.dynamic_chunk
+    accum = int(cfg.extras.get("grad_accum_steps", 1))
+    check_world(cfg.batch_size, world, accum)
     train = D.TrainBatcher(
         D.AudioStore(cfg.audio_dir("train")), train_files[:n_tr], labels,
         batch_size=cfg.batch_size, seed=seed,
@@ -95,10 +133,10 @@ def build_loaders(cfg, device_type: str, seed: int = 1234,
         dcs_min=dcs.min_samples, dcs_max=dcs.max_samples,
         fixed_len=int(cfg.extras.get("train_fixed_length",
                                      D.FIXED_TRAIN_LEN)),
-        pin_memory=device_type == "cuda")
+        pin_memory=device_type == "cuda", groups=accum, **shard)
     dev = D.EvalBatcher(D.AudioStore(cfg.audio_dir("dev")),
                         [e.utt_id for e in dev_entries][:n_dv],
-                        batch_size=eval_bs)
+                        batch_size=eval_bs, **shard)
     return Loaders(train, dev, ev, P.trial_metadata(dev_entries),
                    P.trial_metadata(eval_entries))
 
@@ -156,6 +194,18 @@ def main(argv=None) -> int:
         raise RuntimeError(
             "cli: no CUDA device is available; pass --device cpu to run "
             "on the CPU")
+    from aasist_tpu_torch.parallel import mesh
+    ranks = mesh.from_env(device)
+    try:
+        return _run(args, ranks)
+    finally:
+        mesh.shutdown(ranks)
+
+
+def _run(args, ranks) -> int:
+    """``main`` on this process's rank (``ranks.device``)."""
+    device = ranks.device
+    main = ranks.main
 
     from aasist_tpu_torch.config import load_config
     from aasist_tpu_torch.evaluation.metrics import calculate_tdcf_eer
@@ -181,37 +231,47 @@ def main(argv=None) -> int:
     config_name = Path(args.config).stem
     run_dir = Path(args.output_dir) / cfg.model_tag(
         config_name, args.comment or "")
-    run_dir.mkdir(parents=True, exist_ok=True)
-    shutil.copy(args.config, run_dir / "config.conf")
-
-    print(f"Device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    if main:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        shutil.copy(args.config, run_dir / "config.conf")
+        print(f"Device: {device}"
+              + (f" ({torch.cuda.get_device_name(device)})"
+                 if device.type == "cuda" else "")
+              + (f", rank 0 of {ranks.world}" if ranks.distributed else ""))
     model = build_model(cfg.model_config)
-    print(f"no. model params: {count_params(model)}")
-    loaders = build_loaders(cfg, device.type, args.seed, eval_only=args.eval)
+    if main:
+        print(f"no. model params: {count_params(model)}")
+    loaders = build_loaders(cfg, device.type, args.seed, eval_only=args.eval,
+                            rank=ranks.rank, world=ranks.world)
     precision = _full_f32 if dtype == "float32" else contextlib.nullcontext
 
     if not args.eval:
         results = run_training(cfg, model.to(device), loaders, run_dir,
                                seed=args.seed, resume=args.resume,
-                               precision=precision)
-        print("Exp FIN. EER: {:.3f}, min t-DCF: {:.5f}".format(
-            results["eval_eer"], results["eval_tdcf"]))
+                               precision=precision, ranks=ranks)
+        if main:
+            print("Exp FIN. EER: {:.3f}, min t-DCF: {:.5f}".format(
+                results["eval_eer"], results["eval_tdcf"]))
         return 0
 
     weights = args.eval_model_weights or cfg.model_path
     load_model_weights(model, weights)
-    print(f"Model loaded : {weights}")
     model = model.eval().to(device)
     if dtype == "bfloat16":
         model = model.to(torch.bfloat16)
     eval_chain = int(cfg.extras.get("eval_chain", 1))
-    print("Start evaluation...")
+    if main:
+        print(f"Model loaded : {weights}")
+        print("Start evaluation...")
     eval_score_path = run_dir / cfg.eval_output
     with precision():
         evaluate_to_file(model, loaders.eval, loaders.eval_trial_meta,
-                         eval_score_path, chain=eval_chain)
+                         eval_score_path, chain=eval_chain, ranks=ranks)
+    if ranks.distributed:
+        print(f"rank {ranks.rank}: eval batcher {loaders.eval.seconds:.3f} s",
+              flush=True)
+    if not main:
+        return 0
     eer, tdcf = calculate_tdcf_eer(
         eval_score_path, cfg.asv_scores(), run_dir / "t-DCF_EER.txt")
     # the reference writes the report twice on the eval-only path

@@ -13,6 +13,10 @@ loop copies to the device without blocking; with the same seed and corpus
 its arrays are the JAX batcher's, bit for bit.  Read errors raise: the
 reference's silent zero tensor for an unreadable file, which scored it as
 bonafide, is not reproduced.
+
+In a data-parallel run (``rank`` of ``world``) both batchers plan the
+global batches as one process does and decode only this rank's rows
+(``parallel/mesh.py:local_rows``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import concurrent.futures as cf
 import os
 import queue
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from aasist_tpu_torch.data import audio_io
+from aasist_tpu_torch.parallel.mesh import local_rows
 
 FIXED_EVAL_LEN = 64600      # ~4.04 s at 16 kHz, the reference's eval window
 FIXED_TRAIN_LEN = 96000     # 6 s at 16 kHz, the fork's train window
@@ -218,11 +224,21 @@ class EvalBatcher:
     DataLoader: fixed 64,600-sample padding, one batch shape (the tail
     batch padded by repetition), threaded decode, ``prefetch`` batches
     made ahead on a producer thread.  Batches stay on the host.
+
+    With ``world`` > 1 each batch of ``batch_size`` (a multiple of
+    ``world``) yields this rank's ``batch_size // world`` rows, the padding
+    of the last batch included: a rank whose rows are all padding decodes
+    the batch's last utterance once.  ``seconds`` adds up the decode and
+    padding of the last pass.
     """
 
     def __init__(self, store: AudioStore, utt_ids: Sequence[str],
                  batch_size: int, num_threads: Optional[int] = None,
-                 fixed_len: int = FIXED_EVAL_LEN, prefetch: int = 2):
+                 fixed_len: int = FIXED_EVAL_LEN, prefetch: int = 2,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"eval batch {batch_size} is not a multiple of "
+                             f"the {world} ranks")
         self.store = store
         self.utt_ids = list(utt_ids)
         self.batch_size = batch_size
@@ -230,6 +246,8 @@ class EvalBatcher:
         self.num_threads = (num_threads if num_threads is not None
                             else min(8, os.cpu_count() or 1))
         self.prefetch = prefetch
+        self.rank, self.world = rank, world
+        self.seconds = 0.0
 
     def __len__(self):
         return -(-len(self.utt_ids) // self.batch_size)
@@ -238,14 +256,23 @@ class EvalBatcher:
         return pad_to_fixed(self.store.read(utt_id), self.fixed_len)
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, List[str], int]]:
-        """Yields (host batch (B, L) float32, utt_ids, n_real)."""
+        """Yields (host batch (B, L) float32, utt_ids, n_real); with
+        ``world`` > 1 the batch is this rank's rows and ``utt_ids`` and
+        ``n_real`` are the whole batch's."""
+        share = self.batch_size // self.world
+        lo = self.rank * share
+        self.seconds = 0.0
+
         def produce(emit):
             with cf.ThreadPoolExecutor(self.num_threads) as pool:
                 for i in range(0, len(self.utt_ids), self.batch_size):
+                    t0 = time.perf_counter()
                     ids = self.utt_ids[i:i + self.batch_size]
-                    rows = list(pool.map(self._load_one, ids))
-                    batch, n_real = _pad_batch_rows(rows, self.batch_size)
-                    emit((batch, ids, n_real))
+                    mine = ids[lo:lo + share] or ids[-1:]
+                    rows = list(pool.map(self._load_one, mine))
+                    batch, _ = _pad_batch_rows(rows, share)
+                    self.seconds += time.perf_counter() - t0
+                    emit((batch, ids, len(ids)))
 
         return _iter_prefetched(produce, self.prefetch)
 
@@ -263,6 +290,11 @@ class TrainBatcher:
     zero-pads the batch to the smallest bucket covering its longest row.
     Yields CPU tensors (x (B, L) float32, y (B,) int64, durations (B,)
     float32 seconds), pinned when ``pin_memory``.
+
+    With ``world`` > 1 the shuffle, the DCS lengths and the row generators
+    are the global batch's and the batcher decodes and yields only this
+    rank's rows of it: its share of each of the ``groups`` microbatches
+    (gradient accumulation), in order.
     """
 
     def __init__(self, store: AudioStore, utt_ids: Sequence[str],
@@ -271,7 +303,8 @@ class TrainBatcher:
                  dcs_min: int = 16000, dcs_max: int = 96000,
                  fixed_len: int = FIXED_TRAIN_LEN,
                  num_threads: Optional[int] = None, prefetch: int = 2,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, rank: int = 0, world: int = 1,
+                 groups: int = 1):
         self.store = store
         self.utt_ids = list(utt_ids)
         self.labels = labels
@@ -290,6 +323,7 @@ class TrainBatcher:
                             else min(8, os.cpu_count() or 1))
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self.rows = local_rows(batch_size, rank, world, groups)
         self.epoch = 0
 
     def __len__(self):
@@ -328,8 +362,11 @@ class TrainBatcher:
                     else:
                         targets = [self.fixed_len] * len(ids)
                         pad_to = self.fixed_len
-                    out = list(pool.map(self._load_row, ids, targets,
-                                        [pad_to] * len(ids), row_rngs))
+                    ids = [ids[j] for j in self.rows]
+                    out = list(pool.map(
+                        self._load_row, ids, [targets[j] for j in self.rows],
+                        [pad_to] * len(ids),
+                        [row_rngs[j] for j in self.rows]))
                     batch = (
                         torch.from_numpy(np.stack([r for r, _ in out])
                                          .astype(np.float32, copy=False)),

@@ -38,7 +38,7 @@ from torch import nn as tnn
 
 from aasist_tpu_torch import nn
 from aasist_tpu_torch.models import layers as L
-from aasist_tpu_torch.ops.fused_frontend import fused_frontend
+from aasist_tpu_torch.ops.fused_frontend import fused_frontend_mesh
 from aasist_tpu_torch.ops.fused_stack import fused_frontend_block0
 
 
@@ -46,7 +46,8 @@ class SincFrontendModel(tnn.Module):
     """The sinc frontend of AASIST, AASIST-Robust and RawGAT-ST: the fixed
     filterbank (a buffer, not in checkpoints), ``first_bn``, and
     ``frontend``, which ``use_fused_frontend`` routes through the CUDA
-    kernel (``ops/fused_frontend``) in eval mode."""
+    kernel (``ops/fused_frontend``) in eval mode, split over the devices of
+    ``mesh`` when one is set (the JAX model's ``spmd_mesh``)."""
 
     def __init__(self, model_config: Dict[str, Any]):
         super().__init__()
@@ -58,15 +59,17 @@ class SincFrontendModel(tnn.Module):
                               model_config["first_conv"])),
             persistent=False)
         self.first_bn = tnn.BatchNorm2d(1)
+        self.mesh = None
 
     def frontend(self, x: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
         """(B, L) waveform -> (B, 1, C // 3, (L - 128) // 3) through the
         filterbank ``bank`` (C, K)."""
         if self.use_fused_frontend and not self.training:
             bn = self.first_bn
-            return fused_frontend(
+            return fused_frontend_mesh(
                 x, bank, {"weight": bn.weight, "bias": bn.bias},
-                {"mean": bn.running_mean, "var": bn.running_var})
+                {"mean": bn.running_mean, "var": bn.running_var},
+                mesh=self.mesh)
         h = L.sinc_frontend(bank, x).abs()[:, None]          # (B,1,C,L')
         h = nn.batch_norm(self.first_bn, nn.max_pool(h, (3, 3)), axis=1)
         return nn.selu(h)

@@ -13,7 +13,8 @@ The forward returns ``(ensemble, logits)``: element [1], the one the Scorer,
 the eval loop and the trainer's loss read, is the main head, as in the JAX
 package and the reference's call sites; in train mode the ensemble is the
 main head alone.  Train mode adds Gaussian input noise of
-``noise_sigma * std(x)`` (the std not differentiated) and the non-local
+``noise_sigma * std(x)`` (the std not differentiated; in a
+data-parallel step the global batch's std and noise) and the non-local
 means denoising block on ``max|e|`` over frequency, added back to the
 encoder output, with AASIST's train-mode BatchNorm, dropouts and
 ``freq_aug``.
@@ -96,9 +97,12 @@ class AasistRobustModel(SincFrontendModel):
             if g is None:
                 raise ValueError("AASIST-Robust's train-mode input noise "
                                  "needs an RngStream with a key")
-            scale = self.noise_sigma * x.detach().std(correction=0)
-            x = x + scale * torch.randn(x.shape, generator=g,
-                                        device=x.device, dtype=x.dtype)
+            shard = rngs.shard
+            scale = self.noise_sigma * (
+                x.detach().std(correction=0) if shard is None
+                else nn.global_std(x, shard.ranks))
+            x = x + scale * nn.global_draw(shard, x, lambda shape: torch.randn(
+                shape, generator=g, device=x.device, dtype=x.dtype))
         e = self.frontend(x, bank)
         for block in self.encoder:
             e = block(e)                                      # (B,C,F,T)

@@ -10,6 +10,12 @@ forward takes an ``RngStream``, the counterpart of the JAX package's: each
 dropout (and each other draw of the forward) takes the next generator of
 the stream, so the draws of a step depend only on the stream's key, never
 on the generators' state elsewhere.
+
+In a data-parallel run (``parallel/mesh.py``) a rank holds some rows of
+each global batch.  A BatchNorm marked by ``sync_batch_norm`` takes its
+train-mode statistics over every rank's rows, and a stream with a
+``shard`` draws each mask over the global batch's shape and keeps the
+rank's rows, so that the ranks together compute the one-process forward.
 """
 
 from __future__ import annotations
@@ -32,17 +38,64 @@ def batch_norm(bn: torch.nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     ``batch_norm(train=True)``; ``momentum=None`` averages cumulatively).
 
     ``axis`` lets one helper serve the NCHW trunk (axis 1) and the
-    (B, N, D) graph layers (axis -1), whatever the module's rank.
+    (B, N, D) graph layers (axis -1), whatever the module's rank.  A
+    module with ``dp_ranks`` (``parallel/mesh.py:sync_batch_norm``) takes
+    its train-mode statistics over all ranks' rows.
     """
     factor = 0.0
     if bn.training:
         bn.num_batches_tracked.add_(1)
         factor = (1.0 / float(bn.num_batches_tracked) if bn.momentum is None
                   else bn.momentum)
+        ranks = getattr(bn, "dp_ranks", None)
+        if ranks is not None:
+            return _global_batch_norm(bn, x, axis, factor, ranks)
     y = F.batch_norm(x.movedim(axis, 1), bn.running_mean, bn.running_var,
                      bn.weight, bn.bias, training=bn.training,
                      momentum=factor, eps=bn.eps)
     return y.movedim(1, axis)
+
+
+def _global_batch_norm(bn, x: torch.Tensor, axis: int, factor: float,
+                       ranks) -> torch.Tensor:
+    """Train-mode BatchNorm over the rows of every rank: the mean, then the
+    biased variance about it, each summed over the ranks by a
+    differentiable all-reduce, in float32 at least (bf16 input as
+    ``F.batch_norm`` computes it); the running variance is unbiased over
+    the global count."""
+    xm = x.movedim(axis, 1)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xa = xm.to(acc)
+    dims = [d for d in range(xa.dim()) if d != 1]
+    shape = [1, -1] + [1] * (xa.dim() - 2)
+    count = torch.full((1,), xa.numel() // xa.shape[1], dtype=acc,
+                       device=xa.device)
+    sums = ranks.all_reduce(torch.cat([xa.sum(dims), count]))
+    n = sums[-1]
+    mean = sums[:-1] / n
+    d = xa - mean.view(shape)
+    var = ranks.all_reduce((d * d).sum(dims)) / n
+    y = d * torch.rsqrt(var + bn.eps).view(shape)
+    if bn.weight is not None:
+        y = y * bn.weight.to(acc).view(shape) + bn.bias.to(acc).view(shape)
+    with torch.no_grad():
+        rm, rv = bn.running_mean, bn.running_var
+        rm.copy_((1 - factor) * rm.to(acc) + factor * mean.detach())
+        rv.copy_((1 - factor) * rv.to(acc)
+                 + factor * var.detach() * n / (n - 1))
+    return y.to(x.dtype).movedim(1, axis)
+
+
+def global_std(x: torch.Tensor, ranks) -> torch.Tensor:
+    """The population std of every element of every rank's ``x``, two
+    passes, not differentiated."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xa = x.detach().to(acc).reshape(-1)
+    sums = ranks.all_reduce(torch.stack([xa.sum(), torch.tensor(
+        float(xa.numel()), dtype=acc, device=xa.device)]))
+    mean = sums[0] / sums[1]
+    var = ranks.all_reduce(((xa - mean) ** 2).sum()) / sums[1]
+    return var.sqrt().to(x.dtype)
 
 
 def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
@@ -57,12 +110,23 @@ def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
 selu = torch.selu
 
 
-def dropout(x: torch.Tensor, p: float,
-            generator: torch.Generator) -> torch.Tensor:
+def global_draw(shard, x: torch.Tensor, draw) -> torch.Tensor:
+    """``draw(shape)`` at ``x``'s shape, or with a ``parallel/mesh.py:
+    RowShard`` at the global batch's and cut to the shard's rows."""
+    if shard is None:
+        return draw(x.shape)
+    return draw((shard.total, *x.shape[1:]))[shard.start:shard.stop]
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator,
+            shard=None) -> torch.Tensor:
     """Inverted dropout with torch's scaling (kept rows divided by 1 - p),
-    the keep mask drawn from ``generator`` (on ``x``'s device).
-    ``F.dropout`` takes no generator, hence this."""
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    the keep mask drawn from ``generator`` (on ``x``'s device), over the
+    global batch with a ``shard``.  ``F.dropout`` takes no generator,
+    hence this."""
+    keep = global_draw(shard, x, lambda shape: torch.empty(
+        shape, dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - p, generator=generator))
     return x * keep / (1.0 - p)
 
 
@@ -87,13 +151,17 @@ class RngStream:
     (frequency masking, input noise) are the same either way; the
     train-mode differentials run so (the reference's goldens were captured
     with every ``nn.Dropout`` at p = 0 and BatchNorm in train mode).
+    ``shard`` (a ``parallel/mesh.py:RowShard``) is the rank's rows of the
+    global batch in a data-parallel step: masks and noise are drawn over
+    the global batch and cut to them.
     """
 
     def __init__(self, key: Optional[Sequence[int]],
-                 dropout_enabled: bool = True):
+                 dropout_enabled: bool = True, shard=None):
         self.key: Optional[Tuple[int, ...]] = (
             None if key is None else tuple(int(k) for k in key))
         self.dropout_enabled = dropout_enabled
+        self.shard = shard
         self.count = 0
 
     def next(self, device) -> Optional[torch.Generator]:
@@ -118,4 +186,4 @@ def stream_dropout(rngs: Optional[RngStream], x: torch.Tensor, p: float,
     if g is None:
         raise ValueError("dropout in train mode needs an RngStream with a "
                          "key")
-    return dropout(x, p, g)
+    return dropout(x, p, g, rngs.shard)

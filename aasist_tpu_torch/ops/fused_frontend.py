@@ -9,7 +9,9 @@ tensor-core kernel (``ops/frontend_variants.py:fused_frontend_dot_plain``,
 products and so meets the f32 path's gate that bf16 operands cannot.
 Either launches its kernel or raises on anything it does not take; CPU
 tensors take the plain PyTorch version, ``fused_frontend_reference``.
-There is no fallback from one to another.
+There is no fallback from one to another.  ``fused_frontend_sharded``
+splits a batch over a ``parallel/mesh.py:DataMesh``, each part through
+``fused_frontend`` on its own device (the JAX package's ``shard_map``).
 """
 
 from __future__ import annotations
@@ -150,3 +152,35 @@ def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
 
 
 fused_frontend_fma.launches = 0
+
+
+def fused_frontend_mesh(x: torch.Tensor, bank: torch.Tensor,
+                        bn_p: Mapping[str, torch.Tensor],
+                        bn_s: Mapping[str, torch.Tensor], *,
+                        mesh=None) -> torch.Tensor:
+    """``fused_frontend`` on one device, or split over ``mesh``
+    (``fused_frontend_sharded``): the models route through this call."""
+    if mesh is None:
+        return fused_frontend(x, bank, bn_p, bn_s)
+    return fused_frontend_sharded(x, bank, bn_p, bn_s, mesh=mesh)
+
+
+def fused_frontend_sharded(x: torch.Tensor, bank: torch.Tensor,
+                           bn_p: Mapping[str, torch.Tensor],
+                           bn_s: Mapping[str, torch.Tensor], *,
+                           mesh) -> torch.Tensor:
+    """``fused_frontend`` over the rows of ``x`` split evenly over
+    ``mesh.devices``: each part, with copies of the filterbank and the
+    BatchNorm tensors, goes through the kernel on its device (the plain
+    version on a CPU entry), and the outputs are concatenated on ``x``'s
+    device in row order.  The frontend is row-independent, so no
+    collective is needed and the result is the one-device kernel's."""
+    outs = []
+    for part, device in zip(mesh.parts(x.shape[0]), mesh.devices):
+        def to(t):
+            return t.to(device, non_blocking=True)
+        outs.append(fused_frontend(
+            to(x[part]).contiguous(), to(bank),
+            {k: to(v) for k, v in bn_p.items()},
+            {k: to(v) for k, v in bn_s.items()}))
+    return torch.cat([o.to(x.device) for o in outs])

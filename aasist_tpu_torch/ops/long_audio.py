@@ -12,6 +12,7 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
 
+from aasist_tpu_torch.parallel.mesh import pad_batch_to_multiple
 from aasist_tpu_torch.utils.dispatch import pipelined
 
 WINDOW = 64600
@@ -68,11 +69,9 @@ def score_long_audio(
     scores = np.empty(len(windows), np.float64)
 
     def dispatch_batch(i):
-        chunk = windows[i:i + batch_size]
-        n = len(chunk)
-        if n < batch_size:
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], batch_size - n, axis=0)])
+        # repeat-last-row padding shared with the mesh layer
+        chunk, n = pad_batch_to_multiple(windows[i:i + batch_size],
+                                         batch_size)
         return dispatch(chunk), i, n
 
     def drain_batch(ticket):

@@ -15,6 +15,12 @@ JAX Scorer does: on a card, a batch is copied into a pinned host buffer,
 sent with a non-blocking copy, run, and its scores copied back into a
 pinned buffer behind an event; the host reads them only when the batch
 after the next has been queued.  On the CPU each batch is scored at once.
+
+With ``mesh`` (``parallel/mesh.py:DataMesh``) the scorer is data-parallel
+in one process, as the JAX Scorer's ``mesh``: a replica of the model on
+each device, each batch split by rows, each part queued on its device's
+stream and its scores copied into the batch's pinned buffer behind that
+device's event.
 """
 
 from __future__ import annotations
@@ -75,22 +81,34 @@ class Scorer:
     the CUDA kernel pair of ``ops/fused_stack`` instead (off by default;
     AASIST's residual encoder only).  Asking for a path the model lacks
     raises.  The caller's model is not changed: the scorer works on its own
-    copy.
+    copy.  ``mesh`` spreads each batch over its devices (one replica each,
+    ``batch_size`` a multiple of the mesh's size); ``device`` is then the
+    mesh's first.
     """
 
     def __init__(self, model: torch.nn.Module, *,
                  batch_size: Optional[int] = None,
                  window: int = FIXED_EVAL_LEN, bf16: bool = True,
                  use_fused_frontend: Optional[bool] = None,
-                 use_fused_stack: bool = False, device=None):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
+                 use_fused_stack: bool = False, device=None, mesh=None):
+        devices = (list(mesh.devices) if mesh is not None
+                   else [torch.device("cuda" if device is None else device)])
+        device = devices[0]
+        if (any(d.type == "cuda" for d in devices)
+                and not torch.cuda.is_available()):
             raise RuntimeError(
                 "Scorer: no CUDA device is available; pass device='cpu' to "
                 "score on the CPU")
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"Scorer: a mesh of one device type, not "
+                             f"{devices}")
         if batch_size is None:
             arch = getattr(model, "config", {}).get("architecture")
             batch_size = SERVING_BATCH_DEFAULTS.get(arch, 128)
+        if batch_size % len(devices):
+            raise ValueError(f"Scorer: batch_size {batch_size} is not "
+                             f"divisible by the mesh's {len(devices)} "
+                             "devices")
         self.batch_size = batch_size
         self.window = window
         self.device = device
@@ -111,6 +129,14 @@ class Scorer:
                 raise ValueError(f"Scorer: {type(model).__name__} has no "
                                  f"{path} path")
         self.model = model
+        replicas = {device: model}
+        for d in devices:
+            if d not in replicas:
+                replicas[d] = copy.deepcopy(model).to(d)
+        step = batch_size // len(devices)
+        # (rows, device, replica) of each part of a batch
+        self._parts = [(slice(i * step, (i + 1) * step), d, replicas[d])
+                       for i, d in enumerate(devices)]
         # a ring of pinned slots, one per batch in flight: DISPATCH_DEPTH
         # + 1 tickets exist at once while a list is scored, and a slot
         # comes round again only after its ticket has been drained
@@ -141,20 +167,27 @@ class Scorer:
         if self.device.type != "cuda":
             rows = np.stack([pad_to_fixed(np.asarray(w, np.float32),
                                           self.window) for w in waves])
+            x = torch.from_numpy(_pad_rows(rows, self.batch_size))
             with torch.inference_mode():
-                x = torch.from_numpy(_pad_rows(rows, self.batch_size))
-                _, logits = self.model(x.to(self.device))
-                return _Ticket(n, logits[:, 1].float().numpy()[:n], None, 0)
+                scores = torch.cat([model(x[part].to(device))[1][:, 1]
+                                    .float().cpu()
+                                    for part, device, model in self._parts])
+            return _Ticket(n, scores.numpy()[:n], None, 0)
         slot = self._ring.acquire()
         host = slot.rows.numpy()
         for i, w in enumerate(waves):
             pad_into(host[i], np.asarray(w, np.float32))
         host[n:] = host[n - 1]
-        with torch.inference_mode(), torch.cuda.device(self.device):
-            x = slot.rows.to(self.device, non_blocking=True)
-            _, logits = self.model(x)
-            slot.scores.copy_(logits[:, 1].float(), non_blocking=True)
-            slot.event = record(self.device)
+        events = []
+        with torch.inference_mode():
+            for part, device, model in self._parts:
+                with torch.cuda.device(device):
+                    x = slot.rows[part].to(device, non_blocking=True)
+                    _, logits = model(x)
+                    slot.scores[part].copy_(logits[:, 1].float(),
+                                            non_blocking=True)
+                    events.append(record(device))
+        slot.events = events
         return _Ticket(n, None, slot, slot.gen)
 
     def _drain(self, ticket: _Ticket) -> np.ndarray:

@@ -37,7 +37,7 @@ class SWAState:
 @torch.no_grad()
 def reestimate_bn_stats(model: torch.nn.Module, batches: Iterable, *,
                         max_batches: Optional[int] = None,
-                        mixed_precision: bool = False) -> None:
+                        mixed_precision: bool = False, ranks=None) -> None:
     """Recompute every BatchNorm's running statistics under the model's
     current weights, in place (torchcontrib's ``bn_update``): each
     statistic becomes the mean over ``batches`` of that batch's own.
@@ -49,8 +49,12 @@ def reestimate_bn_stats(model: torch.nn.Module, batches: Iterable, *,
     modes and momenta are restored after.  ``mixed_precision`` runs the
     forwards as the bf16 train step does (``train/loop.py:forward_fn``), so
     each batch's statistics are bf16 values, and the average stays f32, as
-    the JAX package's ``reestimate_bn_stats`` does.
+    the JAX package's ``reestimate_bn_stats`` does.  With ``ranks``
+    (``parallel/mesh.py``) the batches are this rank's rows of the global
+    ones: each statistic is the global batch's and each dropout mask is
+    drawn over it, so every rank ends with the one-process statistics.
     """
+    from aasist_tpu_torch.parallel.mesh import row_shard, sync_batch_norm
     from aasist_tpu_torch.train.loop import forward_fn
 
     bns = [m for m in model.modules()
@@ -60,6 +64,8 @@ def reestimate_bn_stats(model: torch.nn.Module, batches: Iterable, *,
     was_training = model.training
     device = next(model.parameters()).device
     run = forward_fn(model, mixed_precision)
+    if ranks is not None:
+        sync_batch_norm(model, ranks)
     avg = [torch.zeros_like(b) for b in stats]
     for bn in bns:
         bn.reset_running_stats()
@@ -72,7 +78,8 @@ def reestimate_bn_stats(model: torch.nn.Module, batches: Iterable, *,
                 break
             x = batch[0] if isinstance(batch, (tuple, list)) else batch
             x = torch.as_tensor(x).to(device, non_blocking=True)
-            run(x, nn.RngStream((0, i)), False)
+            shard = None if ranks is None else row_shard(ranks, x.shape[0])
+            run(x, nn.RngStream((0, i), shard=shard), False)
             n += 1
             for a, b in zip(avg, stats):
                 a.add_(b - a, alpha=1 / n)

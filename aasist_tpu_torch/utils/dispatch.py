@@ -18,7 +18,7 @@ the host is refilling.
 from __future__ import annotations
 
 import collections
-from typing import Any, Callable, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Iterable, List, Sequence
 
 import torch
 
@@ -50,14 +50,19 @@ def record(device: torch.device) -> torch.cuda.Event:
 
 class Slot:
     """Pinned host buffers of one batch in flight: its ``rows`` and its
-    ``scores``; ``event`` marks the end of its last batch's work on the
-    device and ``gen`` counts the batches the slot has carried."""
+    ``scores``; ``events`` mark the end of its last batch's work on each
+    device that took a part of it, and ``gen`` counts the batches the slot
+    has carried."""
 
     def __init__(self, rows_shape: Sequence[int], n_scores: int):
         self.rows = torch.empty(tuple(rows_shape), pin_memory=True)
         self.scores = torch.empty((n_scores,), pin_memory=True)
-        self.event: Optional[torch.cuda.Event] = None
+        self.events: List[torch.cuda.Event] = []
         self.gen = 0
+
+    def wait(self) -> None:
+        for event in self.events:
+            event.synchronize()
 
     def check(self, gen: int, what: str) -> None:
         """Wait for batch ``gen`` of this slot; raise if the slot has taken
@@ -66,7 +71,7 @@ class Slot:
             raise RuntimeError(
                 f"{what}: a batch was drained after its slot was reused "
                 "by a later one")
-        self.event.synchronize()
+        self.wait()
 
 
 class SlotRing:
@@ -85,7 +90,6 @@ class SlotRing:
                            for _ in range(self.n)]
         slot = self._slots[self._next]
         self._next = (self._next + 1) % self.n
-        if slot.event is not None:
-            slot.event.synchronize()
+        slot.wait()
         slot.gen += 1
         return slot

@@ -58,7 +58,7 @@ Phases, each of which raises (exit code 1) on failure:
      to the JAX package's reading of the other order), the kernels' scores to the f32 ones and the bf16 ones to a Scorer's
      of the same rows, the reports to what main printed; utt/s of each way
      over the 512 utterances, decode to metrics (the 512 corpus is kept
-     for phase 8);
+     for phase 8, the 48 for phase 10);
   7. the nine probes through their entry points
      (aasist_tpu_torch.tools.probe_frontend_variants, probe_fe_fix,
      probe_feb0_ablate, probe_b0_constructs, probe_b0_ablate, probe_b0_epi,
@@ -90,17 +90,39 @@ Phases, each of which raises (exit code 1) on failure:
      and an f32 dev-scoring batch's ms (printed, not gated); then
      cli.main(["--config", C, "--output_dir", D]) training configs/
      AASIST.conf with use_fused_frontend for two epochs on a 240-utterance
-     synthetic corpus (made under chiprun_out/train/, removed after), in
-     f32 and in mixed precision, with the launch counts reset before and
-     read after each run: the train steps launch no kernel and each
+     synthetic corpus (made under chiprun_out/train/, removed after
+     phase 10), in f32 and in mixed precision, with the launch counts
+     reset before and read after each run: the train steps launch no kernel and each
      scoring batch launches the f32 frontend kernel once, the losses are
      finite, bn1 of encoder blocks 1-5 stays at its initial values, every
      file is written, --eval of weights/swa.npz reproduces the final eval
      scores, and --resume of a one-epoch run reaches the same step and
      epoch (numbers also in chiprun_out/train.json);
- 10. one JSON line describing every ported kernel (the frontend kernels'
+ 10. data parallelism on two devices: the first two cards, or with one
+     card that card twice (two replicas, two Gloo ranks, and NCCL in a
+     group of one); which backend ran each part is printed (parallel_phase
+     and the gates above it): a. fused_frontend_sharded at (128, 64600),
+     bf16 and f32, bit for bit the one-device kernel's; b. the mesh Scorer
+     on phase 4's requests (bf16 with the frontend kernel and with the
+     stack, f32 with the frontend kernel) against the one-device Scorer,
+     with utt/s of both; c. 2-rank --eval of the 48 seed-77 utterances
+     (f32 and bf16 with the frontend kernel) against phase 6's one-process
+     runs, with utt/s and each rank's batcher seconds; d. 2-rank training
+     of configs/AASIST.conf at batch 24 = 2 x 12, two steps, against one
+     process (and a per-rank-BatchNorm control that must fail the gate);
+     e. the robust extras: one mixup + PGD step (the statistics of the
+     clean forward alone, the PGD bound and loss increase, ms against a
+     mixup step), then configs/AASIST-Robust.conf with use_mixup and
+     adv_training through cli.main for phase 9's two epochs on 1 and 2
+     ranks; f. the dry run (tools/dryrun_multigpu.py) on 2 ranks; g.
+     utils/profiling.trace around two mesh-Scorer batches, its annotate
+     span and the frontend kernel's launches in the trace (numbers also in
+     chiprun_out/parallel.json); ranks are this script run as
+     "chip_smoke.py --worker cli|train ...";
+ 11. one JSON line describing every ported kernel (the frontend kernels'
      launches on the zoo's paths under "zoo_launches", every kernel's in
-     phase 9's training runs under "train_launches"), the card's line,
+     phase 9's training runs under "train_launches", in phase 10's runs,
+     every rank's summed, under "parallel_launches"), the card's line,
      and last the device JSON line.
 """
 
@@ -1134,7 +1156,8 @@ def train_step_timing(card: str) -> dict:
     return out
 
 
-def train_entry_point(card: str, path_kernels: dict) -> dict:
+def train_entry_point(card: str, path_kernels: dict, keep: bool = False
+                      ) -> dict:
     """Phase 9's training through ``cli.main(["--config", C,
     "--output_dir", D])``: configs/AASIST.conf at full width with
     ``use_fused_frontend``, two epochs on TRAIN_CORPUS (made under
@@ -1147,7 +1170,8 @@ def train_entry_point(card: str, path_kernels: dict) -> dict:
     file written; ``--eval`` of ``weights/swa.npz`` within TOL_EVAL_SCORES
     of the run's final eval scores; ``--resume`` of a one-epoch f32 run
     reaching the straight run's step and epoch and writing the final
-    files.  Returns each run's launches and numbers."""
+    files.  ``keep`` leaves the corpus for phase 10.  Returns each run's
+    launches and numbers."""
     import contextlib
     import functools
     import io
@@ -1285,8 +1309,597 @@ def train_entry_point(card: str, path_kernels: dict) -> dict:
         print(f"[train] --resume after epoch 0: step {meta['step']}, epoch "
               f"{meta['epoch']}, {wall:.1f} s; {report['resume']['final']}")
     finally:
-        shutil.rmtree(corpus, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(corpus, ignore_errors=True)
     return report
+
+
+# Phase 10: data parallelism.  Two devices: the first two cards, or the one
+# card twice (two replicas or two Gloo ranks on it, and a group of one on
+# NCCL).  Gates, each with its reason:
+# - the sharded frontend equals the one-device kernel bit for bit (the
+#   kernels are row-independent);
+# - the mesh Scorer's scores: f32 within TOL_MODEL_ON_OFF of the one-device
+#   Scorer (the same forward on half batches, cuDNN's order may differ),
+#   bf16 within phase 4's bf16 gate (TOL_BF16_LOGITS);
+# - data-parallel --eval: the same utterances in the same order, f32 scores
+#   within DP_EVAL_F32 of the one-process run's, bf16 within BF16_EVAL_REL
+#   of max(|score|, 2) (phase 6's bf16 allowance), EER and min t-DCF within
+#   DP_EVAL_METRICS;
+# - data-parallel training (DP_TRAIN_TOL): two Adam steps of AASIST.conf.
+#   The first step's BatchNorm statistics and loss differ from the
+#   one-process run's by f32 rounding only (the global statistics summed
+#   in another order), 1e-4 of their largest magnitude; the parameters
+#   after two steps by at most two Adam steps of lr 1e-4 each (Adam's
+#   normalised update turns a rounding-level difference of a near-zero
+#   gradient, a conv bias before its BatchNorm, into up to a whole step of
+#   the other sign, which then shows in the next step's statistics: those
+#   are printed, not gated).  The control takes each rank's BatchNorm
+#   statistics alone and must fail.
+DP_EVAL_F32 = 1e-5
+DP_EVAL_METRICS = 1e-6
+DP_TRAIN_TOL = {"stats": 1e-4, "loss": 1e-4, "params": 2 * 2 * 1e-4}
+DP_BATCH = 24
+# the robust extras (phase 10e): the JAX package's defaults, on
+ROBUST_KEYS = {"use_mixup": "True", "adv_training": "True"}
+
+
+def path_kernel_fns() -> dict:
+    """Every kernel wrapper a Scorer or eval path can reach, by name (the
+    routers in front of them count nothing)."""
+    from aasist_tpu_torch.ops import block0_pipe as bp
+    from aasist_tpu_torch.ops.frontend_variants import (
+        fused_frontend_dot_padded, fused_frontend_dot_plain)
+    from aasist_tpu_torch.ops.fused_frontend import fused_frontend_fma
+    from aasist_tpu_torch.ops.fused_stack import (
+        fused_block0_fma, fused_block0_mma, fused_frontend_padded_fma)
+    return {"fused_frontend_dot_plain": fused_frontend_dot_plain,
+            "fused_frontend_dot_padded": fused_frontend_dot_padded,
+            "block0_pipe": bp.block0_pipe,
+            "fused_frontend_fma": fused_frontend_fma,
+            "fused_frontend_padded_fma": fused_frontend_padded_fma,
+            "fused_block0_mma": fused_block0_mma,
+            "fused_block0_fma": fused_block0_fma}
+
+
+def dp_train_steps(ranks=None, sync: bool = True) -> dict:
+    """Phase 10d's two train steps of configs/AASIST.conf at full width on
+    one seeded batch of DP_BATCH x 96,000 (f32, TF32 off, dropout and
+    freq_aug on), in one process or as ``ranks``' rows; ``sync=False``
+    takes each rank's BatchNorm statistics alone (the control).  Returns
+    the losses, each step's ms on the host clock (synchronised), the
+    BatchNorm statistics after the first step (``step1.*``) and every
+    parameter and buffer after the second."""
+    import numpy as np
+    import torch
+
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.parallel import mesh
+    from aasist_tpu_torch.registry import build_model
+    from aasist_tpu_torch.train.loop import make_train_step
+    from aasist_tpu_torch.train.losses import make_loss_fn
+    from aasist_tpu_torch.train.optim import create_optimizer, make_schedule
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(ROOT / "configs" / "AASIST.conf")
+    cfg.optim_config.epochs, cfg.optim_config.steps_per_epoch = 1, 10
+    device = ranks.device if ranks is not None else torch.device("cuda")
+    torch.manual_seed(0)
+    model = build_model(cfg.model_config).to(device).train()
+    optimizer = create_optimizer(cfg.optim_config, model.parameters())
+    loss_fn, use_duration = make_loss_fn(cfg.loss, cfg)
+    step = make_train_step(
+        model, loss_fn, optimizer, make_schedule(cfg.optim_config), seed=0,
+        freq_aug=True, use_duration=use_duration, ranks=ranks)
+    if not sync:
+        mesh.sync_batch_norm(model, None)
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((DP_BATCH, 96000)).astype(
+        np.float32) * 0.05)
+    y = torch.from_numpy(rng.integers(0, 2, DP_BATCH))
+    d = torch.full((DP_BATCH,), 6.0)
+    rows = (np.arange(DP_BATCH) if ranks is None else
+            mesh.local_rows(DP_BATCH, ranks.rank, ranks.world))
+    out = {"loss": [], "ms": []}
+    for i in range(2):
+        xs, ys, ds = (t[rows].to(device) for t in (x, y, d))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        loss, _ = step(xs, ys, ds, i)
+        out["loss"].append(float(loss))
+        torch.cuda.synchronize(device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out.update({f"step1.{k}": b.detach().cpu().clone().numpy()
+                        for k, b in model.named_buffers() if "running" in k})
+    for k, v in [*model.named_parameters(), *model.named_buffers()]:
+        out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def worker(argv) -> int:
+    """One rank of phase 10, started by ``parallel/launch.py:spawn``:
+    ``cli ARGS`` runs ``cli.main(ARGS)``; ``train OUT SYNC BACKEND`` joins a
+    group on BACKEND (also at world size 1) and runs ``dp_train_steps``,
+    rank 0 writing OUT.  Prints a ``WORKER {json}`` line with the kernel
+    wrappers' launches and the wall time."""
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    kernels = path_kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    task, args = argv[0], argv[1:]
+    extra = {}
+    if task == "cli":
+        from aasist_tpu_torch import cli
+        rc = cli.main(args)
+    else:
+        from aasist_tpu_torch.parallel import mesh
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        ranks = mesh.initialize_multihost(
+            f"localhost:{os.environ['MASTER_PORT']}", world, rank,
+            device=f"cuda:{rank % torch.cuda.device_count()}",
+            backend=args[2], timeout_s=300)
+        try:
+            res = dp_train_steps(ranks, sync=args[1] == "1")
+            extra = {"ms": res["ms"], "loss": res["loss"],
+                     "backend": torch.distributed.get_backend()}
+            if ranks.main:
+                np.savez(args[0], **{k: np.asarray(v)
+                                     for k, v in res.items()})
+        finally:
+            mesh.shutdown(ranks)
+        rc = 0
+    torch.cuda.synchronize()
+    print("WORKER " + json.dumps({
+        "rc": rc, "wall_s": time.perf_counter() - t0, **extra,
+        "launches": {k: fn.launches for k, fn in kernels.items()}}),
+        flush=True)
+    return rc
+
+
+def _worker_reports(outs) -> list:
+    """The ``WORKER`` lines of each rank's output."""
+    reps = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("WORKER ")]
+        check(len(lines) == 1,
+              f"a rank printed no WORKER line:\n{out[-3000:]}")
+        reps.append(json.loads(lines[0][len("WORKER "):]))
+    return reps
+
+
+def _summed(reps) -> dict:
+    out = {}
+    for r in reps:
+        for k, n in r["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def parallel_phase(card: str, path_kernels: dict, requests, weights):
+    """Phase 10 (module docstring).  Returns (report, {run: summed kernel
+    launches of its ranks or replicas})."""
+    import re
+    import shutil
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from aasist_tpu_torch.config import load_config
+    from aasist_tpu_torch.evaluation.scorefile import read_score_file
+    from aasist_tpu_torch.ops.fused_frontend import (
+        fused_frontend, fused_frontend_sharded)
+    from aasist_tpu_torch.parallel import launch
+    from aasist_tpu_torch.parallel.mesh import DataMesh
+    from aasist_tpu_torch.registry import build_model
+    from aasist_tpu_torch.serving import Scorer
+    from aasist_tpu_torch.tools._common import cuda_ms
+    from aasist_tpu_torch.train import loop
+    from aasist_tpu_torch.train.losses import weighted_cce
+    from aasist_tpu_torch.train.optim import create_optimizer, make_schedule
+    from aasist_tpu_torch.utils import profiling
+    from aasist_tpu_torch.weights import load_npz
+
+    cards = torch.cuda.device_count()
+    two_cards = cards >= 2
+    m = DataMesh(["cuda:0", "cuda:1"] if two_cards else ["cuda:0", "cuda:0"])
+    rank_backend = "nccl" if two_cards else "gloo"
+    print(f"[parallel] {cards} card(s): the mesh is {m}; 2 ranks run on "
+          f"{'cuda:0 and cuda:1' if two_cards else 'cuda:0, both'} over "
+          f"{rank_backend}" + ("" if two_cards else
+                               "; NCCL runs a group of one"))
+    report, runs = {"cards": cards, "mesh": str(m)}, {}
+    conf_path = ROOT / "configs" / "AASIST.conf"
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in path_kernels.values():
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in path_kernels.items()
+                if fn.launches}
+
+    # ---- a: the sharded frontend against the one-device kernel
+    model32 = load_npz(build_model(load_config(conf_path).model_config),
+                       weights).to("cuda")
+    bn = model32.first_bn
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((128, 64600), generator=gen, device="cuda") * 0.1
+    report["sharded_frontend"] = {}
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        xd = x.to(dtype)
+        bank = model32.filterbank.detach().to(dtype)
+        bn_p = {"weight": bn.weight.detach().to(dtype),
+                "bias": bn.bias.detach().to(dtype)}
+        bn_s = {"mean": bn.running_mean.to(dtype),
+                "var": bn.running_var.to(dtype)}
+        with torch.inference_mode():
+            one = fused_frontend(xd, bank, bn_p, bn_s)
+            reset()
+            two = fused_frontend_sharded(xd, bank, bn_p, bn_s, mesh=m)
+            n = counts()
+        check(torch.equal(one, two), f"fused_frontend_sharded {dname} is "
+              "not the one-device kernel's output bit for bit")
+        ms_one = cuda_ms(lambda: fused_frontend(xd, bank, bn_p, bn_s), 10)
+        ms_two = cuda_ms(lambda: fused_frontend_sharded(
+            xd, bank, bn_p, bn_s, mesh=m), 10)
+        report["sharded_frontend"][dname] = {
+            "equal": True, "launches": n, "ms_one_device": ms_one,
+            "ms_sharded": ms_two}
+        print(f"[parallel] a. fused_frontend_sharded {dname} (128, 64600) "
+              f"over {m}: equal to the one-device kernel bit for bit; "
+              f"launches {n}; {ms_two:.4f} ms against {ms_one:.4f} ms on "
+              f"one device  [{card}]")
+    del x, xd, one, two, model32
+    torch.cuda.empty_cache()
+
+    # ---- b: the mesh Scorer against the one-device Scorer
+    n_batches = sum(-(-len(r) // 128) for r in requests)
+    waves = requests[1][:128] * 5
+    report["mesh_scorer"] = {}
+    for label, kw, own in (
+            ("bf16 frontend", {}, ("fused_frontend_dot_plain",)),
+            ("bf16 stack", {"use_fused_stack": True},
+             ("fused_frontend_dot_padded", "block0_pipe")),
+            ("f32 frontend", {"bf16": False, "use_fused_frontend": True},
+             ("fused_frontend_fma",))):
+        one = Scorer.from_config(conf_path, weights_path=weights, **kw)
+        two = Scorer.from_config(conf_path, weights_path=weights, mesh=m,
+                                 **kw)
+        want = [one.score_waveforms(r) for r in requests]
+        reset()
+        got = [two.score_waveforms(r) for r in requests]
+        n = counts()
+        runs[f"mesh Scorer {label}"] = n
+        for k in path_kernels:
+            need = 2 * n_batches if k in own else 0
+            check(n.get(k, 0) == need, f"mesh Scorer {label}: {k} launched "
+                  f"{n.get(k, 0)} times, want {need} (two parts of "
+                  f"{n_batches} batches)")
+        d = max(float(np.abs(np.subtract(a, b)).max())
+                for a, b in zip(got, want))
+        if label.startswith("f32"):
+            ok = all(np.allclose(a, b, **TOL_MODEL_ON_OFF)
+                     for a, b in zip(got, want))
+            gate = (f"atol {TOL_MODEL_ON_OFF['atol']}, rtol "
+                    f"{TOL_MODEL_ON_OFF['rtol']}")
+        else:
+            ok = d <= TOL_BF16_LOGITS["atol"]
+            gate = f"atol {TOL_BF16_LOGITS['atol']}"
+        check(ok, f"mesh Scorer {label} off the one-device Scorer: {d}")
+        ups = {"one device": [], "mesh": []}
+        for who, sc in (("one device", one), ("mesh", two), ("mesh", two),
+                        ("one device", one)):
+            sc.score_waveforms(waves[:128])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.score_waveforms(waves)
+            ups[who].append(len(waves) / (time.perf_counter() - t0))
+        report["mesh_scorer"][label] = {
+            "max_abs_diff": d, "launches": n,
+            "utt_per_s": {k: float(np.mean(v)) for k, v in ups.items()}}
+        print(f"[parallel] b. mesh Scorer {label}, batch 128 over {m}: "
+              f"max|mesh - one device| {d:.3e} ({gate}); launches {n}; "
+              f"pipelined {np.mean(ups['mesh']):.1f} utt/s against "
+              f"{np.mean(ups['one device']):.1f} on one device (runs "
+              f"{ {k: [round(u, 1) for u in v] for k, v in ups.items()} })"
+              f"  [{card}]")
+        del one, two
+        torch.cuda.empty_cache()
+
+    # ---- g: profiling.trace around one mesh-Scorer batch
+    two = Scorer.from_config(conf_path, weights_path=weights, mesh=m)
+    rows = np.stack([np.resize(w, 64600) for w in requests[1][:128]])
+    two.score_batch(rows)
+    trace_dir = ROOT / "chiprun_out" / "profile_mesh"
+    # two batches in the window: a run of this phase once found one of a
+    # batch's two launches missing from the trace (the wrapper counted
+    # both), so the gate asks for at least one batch's worth
+    reset()
+    with profiling.trace(trace_dir):
+        with profiling.annotate("mesh_scorer_batch"):
+            two.score_batch(rows)
+            two.score_batch(rows)
+    n = counts().get("fused_frontend_dot_plain", 0)
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "mesh_scorer_batch"]
+    fe = [e for e in events if e.get("cat") == "kernel"
+          and "frontend_dot_kernel" in e.get("name", "")]
+    check(n == 4 and len(spans) >= 1 and len(fe) >= 2,
+          f"trace: {len(spans)} annotate spans, {len(fe)} frontend kernel "
+          f"launches of the {n} the wrapper counted (want 4, at least 2 in "
+          "the trace)")
+    report["trace"] = {"spans": len(spans), "frontend_launches": len(fe),
+                       "counted": n, "events": len(events)}
+    print(f"[parallel] g. profiling.trace of two mesh-Scorer batches: "
+          f"{len(events)} events, the annotate span, {len(fe)} of the "
+          f"{n} launches of the frontend kernel "
+          "(chiprun_out/profile_mesh/trace.json)")
+    del two
+    torch.cuda.empty_cache()
+
+    # ---- c: data-parallel --eval against phase 6's one-process runs
+    out = ROOT / "chiprun_out" / "eval"
+    report["dp_eval"] = {}
+    try:
+        for way in ("f32_frontend", "bf16_frontend"):
+            path = out / f"LA77_{way}.conf"
+            cfg = load_config(path)
+            tag = cfg.model_tag(path.stem)
+            outs = launch.spawn(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                 "cli", "--config", str(path), "--eval", "--output_dir",
+                 str(out / "dp2")], 2, timeout=600, cwd=ROOT)
+            reps = _worker_reports(outs)
+            n = _summed(reps)
+            runs[f"DP --eval {way}"] = n
+            kernel = ("fused_frontend_fma" if way.startswith("f32")
+                      else "fused_frontend_dot_plain")
+            check(n == {**{k: 0 for k in path_kernels}, kernel: 2},
+                  f"DP --eval {way}: launches {n}, want {kernel} once a "
+                  "rank")
+            one = read_score_file(out / "exp" / tag / cfg.eval_output)
+            got = read_score_file(out / "dp2" / tag / cfg.eval_output)
+            check([r[:3] for r in got] == [r[:3] for r in one],
+                  f"DP --eval {way}: other utterances or order")
+            s1 = np.asarray([r[3] for r in one])
+            s2 = np.asarray([r[3] for r in got])
+            d = float(np.abs(s2 - s1).max())
+            if way.startswith("f32"):
+                check(d <= DP_EVAL_F32, f"DP --eval {way}: scores off the "
+                      f"one-process run's by {d}")
+            else:
+                check(bool(np.all(np.abs(s2 - s1) <= BF16_EVAL_REL
+                                  * np.maximum(np.abs(s1), 2.0))),
+                      f"DP --eval {way}: scores off by {d}")
+            metrics = []
+            for run_dir in (out / "exp" / tag, out / "dp2" / tag):
+                text = (run_dir / "t-DCF_EER.txt").read_text()
+                metrics.append((
+                    float(re.search(r"\tEER\t\t= +([0-9.]+) %",
+                                    text).group(1)),
+                    float(re.search(r"min-tDCF\t\t= +([0-9.]+)",
+                                    text).group(1))))
+            dm = max(abs(a - b) for a, b in zip(*metrics))
+            check(dm <= DP_EVAL_METRICS, f"DP --eval {way}: EER / min t-DCF "
+                  f"{metrics[1]} against {metrics[0]}")
+            batcher = [float(v) for v in re.findall(
+                r"rank \d: eval batcher ([0-9.]+) s", "".join(outs))]
+            wall = reps[0]["wall_s"]
+            report["dp_eval"][way] = {
+                "max_abs_diff": d, "metrics": metrics, "launches": n,
+                "wall_s": wall, "utt_per_s": 48 / wall,
+                "batcher_s": batcher, "backend": rank_backend}
+            print(f"[parallel] c. DP --eval {way}, 2 ranks over "
+                  f"{rank_backend}: 48 utterances, the one-process run's ids "
+                  f"in its order, max|score diff| {d:.3e}, EER / min t-DCF "
+                  f"{metrics[1]} (one process {metrics[0]}); "
+                  f"{48 / wall:.1f} utt/s (rank 0's cli.main {wall:.2f} s), "
+                  f"batcher s by rank {batcher}; launches {n}  [{card}]")
+    finally:
+        shutil.rmtree(out / "LA77", ignore_errors=True)
+
+    # ---- d: data-parallel training against one process, and the control
+    ref = dp_train_steps()
+    plan = ([("2 ranks", 2, True, "nccl"),
+             ("control, per-rank BN", 2, False, "nccl")] if two_cards else
+            [("2 ranks", 2, True, "gloo"),
+             ("control, per-rank BN", 2, False, "gloo"),
+             ("group of one", 1, True, "nccl")])
+    report["dp_train"] = {"one_process_ms": ref["ms"],
+                          "one_process_loss": ref["loss"], "runs": {}}
+    npz = ROOT / "chiprun_out" / "dp_train.npz"
+    for label, world, sync, backend in plan:
+        outs = launch.spawn(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+             "train", str(npz), "1" if sync else "0", backend], world,
+            timeout=600, cwd=ROOT)
+        reps = _worker_reports(outs)
+        check(all(r["backend"] == backend for r in reps),
+              f"DP train {label}: backends {[r['backend'] for r in reps]}")
+        n = _summed(reps)
+        check(not any(n.values()), f"DP train {label}: launches {n}")
+        with np.load(npz) as got:
+            def rel(keys):
+                return max(float(np.abs(got[k] - ref[k]).max())
+                           / max(float(np.abs(ref[k]).max()), 1e-30)
+                           for k in keys)
+            stats = rel(k for k in got.files if k.startswith("step1."))
+            stats2 = rel(k for k in got.files
+                         if "running" in k and not k.startswith("step1."))
+            params = max(float(np.abs(got[k] - ref[k]).max())
+                         for k, _ in build_model(load_config(
+                             conf_path).model_config).named_parameters())
+            losses = [abs(a - b) / abs(b)
+                      for a, b in zip(got["loss"], ref["loss"])]
+        readings = {"stats": stats, "loss": losses[0], "params": params}
+        passes = all(readings[k] <= DP_TRAIN_TOL[k] for k in readings)
+        report["dp_train"]["runs"][label] = {
+            **readings, "passes": passes, "backend": backend,
+            "stats_step2": stats2, "loss_step2": losses[1],
+            "ms": reps[0]["ms"], "loss": reps[0]["loss"]}
+        print(f"[parallel] d. DP train {label} ({world} rank(s) over "
+              f"{backend}), AASIST.conf batch {DP_BATCH} x 96000 f32, 2 "
+              f"steps: BN statistics after step 1 {stats:.3e} of their max "
+              f"(gate {DP_TRAIN_TOL['stats']:g}; after step 2 "
+              f"{stats2:.3e}, not gated), step-1 loss {losses[0]:.3e} "
+              f"relative (gate {DP_TRAIN_TOL['loss']:g}; step 2 "
+              f"{losses[1]:.3e}), parameters after step 2 max|d| "
+              f"{params:.3e} (gate {DP_TRAIN_TOL['params']:g}); step ms "
+              f"{[round(v, 1) for v in reps[0]['ms']]} against one process "
+              f"{[round(v, 1) for v in ref['ms']]}  [{card}]")
+        if label.startswith("control"):
+            check(not passes, f"the per-rank BatchNorm control passes the "
+                  f"DP gate, which so cannot tell it: {readings}")
+        else:
+            check(passes, f"DP train {label} off the one-process run: "
+                  f"{readings}")
+    npz.unlink()
+    del ref
+    torch.cuda.empty_cache()
+
+    # ---- e: the robust extras: one batch, then cli.main on 1 and 2 ranks
+    rconf = json.loads((ROOT / "configs" / "AASIST-Robust.conf").read_text())
+    rcfg_model = rconf["model_config"]
+    robust = loop.RobustOptions(use_mixup=True, adv_training=True)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((24, 96000)).astype(
+        np.float32) * 0.05).cuda()
+    y = torch.from_numpy(rng.integers(0, 2, 24)).cuda()
+    d = torch.full((24,), 6.0, device="cuda")
+    cfg = load_config(conf_path)
+    cfg.optim_config.epochs, cfg.optim_config.steps_per_epoch = 1, 10
+
+    def step_for(opts):
+        torch.manual_seed(0)
+        model = build_model(rcfg_model).cuda().train()
+        return model, loop.make_train_step(
+            model, lambda lg, yy, dd: weighted_cce(lg, yy),
+            create_optimizer(cfg.optim_config, model.parameters()),
+            make_schedule(cfg.optim_config), seed=0, freq_aug=True,
+            use_duration=False, robust=opts)
+
+    clean_model, clean_step = step_for(loop.RobustOptions(use_mixup=True))
+    rob_model, rob_step = step_for(robust)
+    losses = [float(clean_step(x, y, d, 0)[0]), float(rob_step(x, y, d, 0)[0])]
+    stat_diff = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                      1e-30)
+                    for (k, a), (_, b) in zip(rob_model.named_buffers(),
+                                              clean_model.named_buffers())
+                    if "running" in k)
+    check(stat_diff <= 1e-6 and all(np.isfinite(losses)),
+          f"robust step: BN statistics {stat_diff} off the clean forward's "
+          f"alone (gate 1e-6 of their max), losses {losses}")
+    ms_plain = cuda_ms(lambda: clean_step(x, y, d, 1), 3, warmup=1)
+    ms_robust = cuda_ms(lambda: rob_step(x, y, d, 1), 3, warmup=1)
+    # the PGD check on a freshly built model in eval mode, as the JAX
+    # package's test makes it (tests/test_robust_training.py:75-99)
+    del clean_model, rob_model
+    torch.manual_seed(0)
+    model = build_model(rcfg_model).to(x.device).eval()
+
+    def eval_loss(xb):
+        return weighted_cce(model(xb)[1], y)
+
+    x_adv = loop.pgd(eval_loss, x, robust)
+    bound = float((x_adv - x).abs().max())
+    with torch.no_grad():
+        l_x, l_adv = float(eval_loss(x)), float(eval_loss(x_adv))
+    check(0 < bound <= robust.adv_epsilon + 1e-6 and l_adv >= l_x,
+          f"PGD: max|x_adv - x| {bound} (epsilon {robust.adv_epsilon}), "
+          f"eval loss {l_adv} on x_adv against {l_x} on x")
+    report["robust_batch"] = {
+        "stat_diff": stat_diff, "losses": losses, "x_adv_bound": bound,
+        "eval_loss_x": l_x, "eval_loss_x_adv": l_adv, "ms_plain": ms_plain,
+        "ms_robust": ms_robust}
+    print(f"[parallel] e. robust step (mixup + PGD, {robust.adv_steps} "
+          f"steps) of AASIST-Robust.conf, batch 24 x 96000 f32: BN "
+          f"statistics {stat_diff:.1e} of their max from the clean forward "
+          f"alone; max|x_adv - x| {bound:.4f} (epsilon "
+          f"{robust.adv_epsilon}); eval loss {l_adv:.5f} on x_adv, "
+          f"{l_x:.5f} on x; {ms_robust:.1f} ms a step against {ms_plain:.1f}"
+          f" for mixup alone ({ms_robust / ms_plain:.2f}x; adv_steps + 2 = "
+          f"{robust.adv_steps + 2} forwards and backwards)  [{card}]")
+    del model, x, x_adv
+    torch.cuda.empty_cache()
+
+    tdir = ROOT / "chiprun_out" / "train"
+    rconf.update(database_path=str(tdir / "LA"), num_epochs=2, **ROBUST_KEYS)
+    rconf["model_config"]["use_fused_frontend"] = True
+    rpath = tdir / "AASIST-Robust_robust.conf"
+    rpath.write_text(json.dumps(rconf, indent=1))
+    report["robust_cli"] = {}
+    try:
+        for world in (1, 2):
+            outs = launch.spawn(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                 "cli", "--config", str(rpath), "--output_dir",
+                 str(tdir / f"robust{world}")], world, timeout=900, cwd=ROOT)
+            reps = _worker_reports(outs)
+            run_dir = tdir / f"robust{world}" / load_config(
+                rpath).model_tag(rpath.stem)
+            scalars = [json.loads(line) for line in
+                       (run_dir / "metrics.jsonl").read_text().splitlines()]
+            ep_losses = [s["value"] for s in scalars if s["name"] == "loss"]
+            secs = [s["value"] for s in scalars
+                    if s["name"] == "epoch_seconds"]
+            meta = json.loads((run_dir / "train_state/meta.json").read_text())
+            last = outs[0].strip().splitlines()
+            fin = [ln for ln in last if ln.startswith("Exp FIN.")]
+            check(len(ep_losses) == 2 and bool(np.isfinite(ep_losses).all())
+                  and (meta["step"], meta["epoch"]) == (20, 1) and fin,
+                  f"robust cli.main, {world} rank(s): losses {ep_losses}, "
+                  f"state {meta}")
+            # every rank's scoring batches (2 x 2 dev, 2 for each eval on
+            # a new best dev EER and at the end) launch the f32 frontend
+            # kernel once each; the train steps none
+            n_best = len(list((run_dir / "metrics").glob("t-DCF_EER_*")))
+            n = _summed(reps)
+            want = world * (2 * 2 + 2 * (n_best + 1))
+            check(n == {**{k: 0 for k in path_kernels},
+                        "fused_frontend_fma": want},
+                  f"robust cli.main, {world} rank(s): launches {n}, want "
+                  f"fused_frontend_fma {want}")
+            runs[f"robust training, {world} rank(s)"] = n
+            report["robust_cli"][world] = {
+                "losses": ep_losses, "epoch_seconds": secs,
+                "ms_per_step": [1e3 * s / 10 for s in secs],
+                "wall_s": reps[0]["wall_s"], "final": fin[0], "launches": n,
+                "backend": rank_backend if world == 2 else None}
+            print(f"[parallel] e. cli.main AASIST-Robust.conf with use_mixup"
+                  f" and adv_training, 2 epochs of 10 steps, {world} "
+                  f"rank(s){' over ' + rank_backend if world == 2 else ''}"
+                  f": losses {ep_losses}, epochs "
+                  f"{[round(v, 2) for v in secs]} s "
+                  f"({[round(100 * v, 1) for v in secs]} ms a step); "
+                  f"launches {n}; {fin[0]}  [{card}]")
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+
+    # ---- f: the dry run on 2 ranks
+    res = subprocess.run(
+        [sys.executable, "-m", "aasist_tpu_torch.tools.dryrun_multigpu",
+         "--nproc", "2"], capture_output=True, text=True, cwd=ROOT,
+        timeout=900)
+    check(res.returncode == 0 and "all phases passed" in res.stdout,
+          f"dryrun_multigpu --nproc 2:\n{(res.stdout + res.stderr)[-4000:]}")
+    for line in res.stdout.splitlines():
+        if line.startswith("dryrun_multigpu"):
+            print(f"[parallel] f. {line}")
+    report["dryrun"] = [ln for ln in res.stdout.splitlines()
+                        if ln.startswith("dryrun_multigpu")]
+    return report, runs
 
 
 def main() -> int:
@@ -1995,14 +2608,7 @@ def main() -> int:
     # every kernel wrapper a Scorer path can reach (the routers in front of
     # them count nothing); all counts are set to 0 just before each run and
     # read just after it
-    path_kernels = {
-        "fused_frontend_dot_plain": fused_frontend_dot_plain,
-        "fused_frontend_dot_padded": fused_frontend_dot_padded,
-        "block0_pipe": bp.block0_pipe,
-        "fused_frontend_fma": fused_frontend_fma,
-        "fused_frontend_padded_fma": fused_frontend_padded_fma,
-        "fused_block0_mma": fused_block0_mma,
-        "fused_block0_fma": fused_block0_fma}
+    path_kernels = path_kernel_fns()
 
     def older_block0(model, on):
         """Run ``model``'s stack path with the older bf16 block-0 kernel
@@ -2195,7 +2801,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     del scorer, xb
     torch.cuda.empty_cache()
-    eval_launches = eval_pipeline(card, path_kernels, keep=("LA99",))
+    eval_launches = eval_pipeline(card, path_kernels,
+                                  keep=("LA99", "LA77"))
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 7
@@ -2274,7 +2881,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing = train_step_timing(card)
     torch.cuda.empty_cache()
-    train_report = train_entry_point(card, path_kernels)
+    train_report = train_entry_point(card, path_kernels, keep=True)
     print(f"[train] phase 9: {time.perf_counter() - t0:.1f} s")
     (ROOT / "chiprun_out" / "train.json").write_text(json.dumps(
         {"card": card, "goldens": readings, "one_step": step_readings,
@@ -2286,6 +2893,16 @@ def main() -> int:
                 for run in TRAIN_RUNS}
 
     # ---------------------------------------------------------------- 10
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    parallel_report, parallel_runs = parallel_phase(
+        card, path_kernels, requests, weights)
+    print(f"[parallel] phase 10: {time.perf_counter() - t0:.1f} s")
+    (ROOT / "chiprun_out" / "parallel.json").write_text(json.dumps(
+        {"card": card, "report": parallel_report,
+         "launches": parallel_runs}, indent=1))
+
+    # ---------------------------------------------------------------- 11
     # the Scorer's kernels: each entry's launches are those of the main-path
     # run that takes it (phase 4: the bf16 paths for the new kernels and
     # the older bf16 block 0, the f32 paths for the CUDA-core kernels, whose
@@ -2423,8 +3040,12 @@ def main() -> int:
                 "fused_frontend_padded": "fused_frontend_padded_fma",
                 "fused_block0": "fused_block0_mma"}
     for entry in kernels:
-        entry["train_launches"] = train_runs(
-            wrappers.get(entry["name"], entry["name"]))
+        wrapper = wrappers.get(entry["name"], entry["name"])
+        entry["train_launches"] = train_runs(wrapper)
+        # phase 10's data-parallel runs (every rank's launches summed)
+        entry["parallel_launches"] = {
+            run: c[wrapper] for run, c in parallel_runs.items()
+            if c.get(wrapper)}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2434,4 +3055,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker(sys.argv[2:]) if sys.argv[1:2] == ["--worker"]
+             else main())

@@ -372,15 +372,3 @@ def test_training_keys_are_the_jax_packages():
                     "label_smoothing", "use_mixup", "adv_training"):
             assert got.extras.get(key) == want.extras.get(key), (name, key)
 
-
-def test_robust_extras_raise(tmp_path):
-    from aasist_tpu_torch.train.loop import check_robust_options
-    conf = json.loads(open(os.path.join(ROOT, "configs",
-                                        "AASIST-Robust.conf")).read())
-    for key in ("use_mixup", "adv_training"):
-        path = tmp_path / f"{key}.conf"
-        path.write_text(json.dumps({**conf, key: "True"}))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_robust_options(load_config(path))
-    check_robust_options(load_config(os.path.join(ROOT, "configs",
-                                                  "AASIST-Robust.conf")))
