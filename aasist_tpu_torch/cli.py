@@ -39,10 +39,19 @@ the serving batch (``SERVING_BATCH_DEFAULTS``); ``eval_batch_size`` and
 ``adv_training`` in the config turn on the robust-training extras
 (``train/loop.py:RobustOptions``).
 
-Data parallelism: under ``torchrun --nproc_per_node N -m
-aasist_tpu_torch.cli --config C [--eval]`` (``WORLD_SIZE`` above 1) each
-rank joins the process group (``parallel/mesh.py:from_env``: NCCL when
-every rank has a card of its own, else Gloo), owns ``cuda:LOCAL_RANK``
+Data parallelism: on a host with several visible cards, ``main`` without
+``WORLD_SIZE`` and with ``--device cuda`` (no index) runs as the JAX CLI
+does, data-parallel over the largest number of cards that divides the
+config's ``batch_size`` (``data_parallel_ranks``): it prints
+``Data-parallel mesh: d devices`` and starts d ranks of the same command
+(``parallel/launch.py:spawn``), passing rank 0's output through as it comes
+and returning the first failing rank's exit code; when no more than one
+card divides the batch it runs in this process on ``cuda:0`` and warns.
+``--device cuda:N`` or ``CUDA_VISIBLE_DEVICES`` run on one card.  Under
+``torchrun --nproc_per_node N -m aasist_tpu_torch.cli --config C [--eval]``
+(``WORLD_SIZE`` above 1) each rank joins the process group
+(``parallel/mesh.py:from_env``: NCCL when every rank has a physical card
+of its own, else Gloo), owns ``cuda:LOCAL_RANK``
 (or the CPU with ``--device cpu``) and decodes only its rows of every
 global batch; a train step and the scores equal one process's on the
 whole batch.  Rank 0 writes the run directory; every rank reads a
@@ -58,8 +67,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import shutil
 import sys
+import warnings
 from pathlib import Path
 
 import torch
@@ -88,6 +99,52 @@ def check_world(batch_size: int, world: int, grad_accum_steps: int = 1
             f"microbatch(es) does not split over {world} ranks: run "
             f"{fit} ranks (the largest world size up to {world} that "
             "divides it), or change batch_size")
+
+
+def data_parallel_ranks(batch_size: int, n_cards: int,
+                        grad_accum_steps: int = 1) -> int:
+    """The ranks a run on ``n_cards`` visible cards takes: the largest
+    d <= n_cards that splits each of the ``grad_accum_steps`` microbatches
+    of ``batch_size`` (the JAX CLI's mesh over the largest divisor of the
+    batch, ``aasist_tpu/cli.py:155-163``)."""
+    return max(d for d in range(1, max(n_cards, 1) + 1)
+               if batch_size % (d * grad_accum_steps) == 0)
+
+
+def _spawn_ranks(args, argv) -> "int | None":
+    """On a host with several visible cards, without ``WORLD_SIZE`` and with
+    ``--device cuda`` (no index): start ``data_parallel_ranks`` ranks of this
+    command and return the run's exit code, or, when one rank is all the
+    batch allows, warn and return None (the run stays in this process).
+    None too where the caller picked a card or a launcher started us."""
+    device = torch.device(args.device)
+    if ("WORLD_SIZE" in os.environ or device.type != "cuda"
+            or device.index is not None or torch.cuda.device_count() < 2):
+        return None
+    from aasist_tpu_torch.config import load_config
+
+    cfg = load_config(args.config)
+    n_cards = torch.cuda.device_count()
+    accum = int(cfg.extras.get("grad_accum_steps", 1))
+    d = data_parallel_ranks(cfg.batch_size, n_cards, accum)
+    if d < 2:
+        warnings.warn(
+            f"batch_size {cfg.batch_size} does not split over any number "
+            f"of the {n_cards} visible cards above one: this run uses "
+            f"cuda:0 and leaves {n_cards - 1} idle; pick a batch that "
+            "splits, and run torchrun --nproc_per_node N -m "
+            "aasist_tpu_torch.cli " + " ".join(argv), stacklevel=2)
+        return None
+    from aasist_tpu_torch.parallel import launch
+
+    print(f"Data-parallel mesh: {d} devices", flush=True)
+    try:
+        launch.spawn([sys.executable, "-m", "aasist_tpu_torch.cli", *argv],
+                     d, timeout=None, echo=sys.stdout)
+    except launch.RanksFailed as e:
+        print(e, file=sys.stderr)
+        return e.returncode
+    return 0
 
 
 def build_loaders(cfg, device_type: str, seed: int = 1234,
@@ -187,6 +244,7 @@ def main(argv=None) -> int:
                         metavar=("TRAIN", "DEV", "EVAL"))
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
 
     device = torch.device(args.device)
@@ -194,6 +252,9 @@ def main(argv=None) -> int:
         raise RuntimeError(
             "cli: no CUDA device is available; pass --device cpu to run "
             "on the CPU")
+    code = _spawn_ranks(args, argv)
+    if code is not None:
+        return code
     from aasist_tpu_torch.parallel import mesh
     ranks = mesh.from_env(device)
     try:

@@ -4,14 +4,18 @@ BatchNorm(1) -> SELU in one CUDA kernel.
 Counterpart of ``aasist_tpu/ops/fused_frontend.py``.  ``fused_frontend``
 picks the kernel by the input's type: bfloat16 CUDA tensors go to the
 tensor-core kernel (``ops/frontend_variants.py:fused_frontend_dot_plain``,
-``csrc/frontend_dot.cu``), float32 ones to the CUDA-core kernel
-(``fused_frontend_fma``, ``csrc/fused_frontend.cu``), which sums f32
-products and so meets the f32 path's gate that bf16 operands cannot.
-Either launches its kernel or raises on anything it does not take; CPU
-tensors take the plain PyTorch version, ``fused_frontend_reference``.
-There is no fallback from one to another.  ``fused_frontend_sharded``
-splits a batch over a ``parallel/mesh.py:DataMesh``, each part through
-``fused_frontend`` on its own device (the JAX package's ``shard_map``).
+``csrc/frontend_dot.cu``), float32 ones to the CUDA-core redesign
+(``ops/frontend_f32.py:fused_frontend_ffma``, ``csrc/frontend_ffma.cu``),
+whose f32 sums meet the f32 path's gate that bf16 operands cannot and are
+bit for bit those of the older CUDA-core kernel (``fused_frontend_fma``,
+``csrc/fused_frontend.cu``).  That kernel takes any other type (float32
+and bfloat16; it raises on the rest) and stays as the version the
+redesign is measured against.  Each launches its kernel or raises on
+anything it does not take; CPU tensors take the plain PyTorch version,
+``fused_frontend_reference``.  There is no fallback from one to another.
+``fused_frontend_sharded`` splits a batch over a
+``parallel/mesh.py:DataMesh``, each part through ``fused_frontend`` on its
+own device (the JAX package's ``shard_map``).
 """
 
 from __future__ import annotations
@@ -138,9 +142,10 @@ def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
 
     ``bank`` (C, 129) may carry freq-aug masking; ``bn_p`` holds the
     one-channel BatchNorm's ``weight``/``bias``, ``bn_s`` its ``mean``/
-    ``var``.  bfloat16 CUDA tensors run the tensor-core kernel, anything
-    else on a device the CUDA-core kernel (module docstring); the kernel's
-    wrapper counts the launch.
+    ``var``.  bfloat16 CUDA tensors run the bf16 tensor-core kernel,
+    float32 ones the CUDA-core redesign, anything else on a device the
+    older CUDA-core kernel (module docstring); the kernel's wrapper counts
+    the launch.
     """
     if x.device.type == "cpu":
         return fused_frontend_reference(x, bank, bn_p, bn_s)
@@ -148,6 +153,9 @@ def fused_frontend(x: torch.Tensor, bank: torch.Tensor,
         from aasist_tpu_torch.ops.frontend_variants import (
             fused_frontend_dot_plain)
         return fused_frontend_dot_plain(x, bank, bn_p, bn_s)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        from aasist_tpu_torch.ops import frontend_f32
+        return frontend_f32.fused_frontend_ffma(x, bank, bn_p, bn_s)
     return fused_frontend_fma(x, bank, bn_p, bn_s)
 
 

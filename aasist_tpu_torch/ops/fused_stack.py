@@ -17,16 +17,20 @@ two.  Each picks its kernel by the input's type:
                ``csrc/frontend_dot.cu``), then the warp-specialised block 0
                (``ops/block0_pipe.py:block0_pipe``, ``csrc/block0_pipe.cu``),
                whose output is channels last;
-    float32    the CUDA-core frontend's padded store
-               (``fused_frontend_padded_fma``, ``csrc/fused_frontend.cu``),
-               then block 0 with conv2 on the CUDA cores
-               (``fused_block0_fma``, ``csrc/fused_block0.cu``), whose f32
-               sums of f32 products meet the f32 path's gate that bf16
-               tensor-core operands cannot.
+    float32    the 3xTF32 frontend's padded store
+               (``ops/frontend_f32.py:fused_frontend_padded_tf32x3``,
+               ``csrc/frontend_f32.cu``), then the warp-specialised block 0
+               with conv2 on the tensor cores by the 3xTF32 split
+               (``ops/block0_f32.py:block0_tf32x3``, ``csrc/block0_f32.cu``):
+               f32 sums of split products, which meet the f32 path's gate
+               that bf16 tensor-core operands cannot.
 
-The older bf16 block-0 kernel stays callable as ``fused_block0_mma`` (the
-version the new one is measured against, and the base of the probe builds
-of ``ops/block0_variants.py``).  Each wrapper launches its kernel for CUDA
+The older kernels stay callable as the versions the new ones are measured
+against: ``fused_block0_mma`` (bf16, also the base of the probe builds of
+``ops/block0_variants.py``), and the CUDA-core kernels
+``fused_frontend_padded_fma`` (``csrc/fused_frontend.cu``, float32 and
+bfloat16; the route of any other type, which it refuses) and
+``fused_block0_fma`` (``csrc/fused_block0.cu``, float32).  Each wrapper launches its kernel for CUDA
 tensors and raises on anything the kernel does not take; for CPU tensors it
 computes its plain PyTorch version (``*_reference``).  There is no fallback
 from one to another.
@@ -85,9 +89,9 @@ def fused_frontend_padded(x: torch.Tensor, bank: torch.Tensor,
     ``x``'s dtype: the input layout of ``fused_block0``.
 
     Arguments as ``ops.fused_frontend.fused_frontend``.  bfloat16 CUDA
-    tensors run the tensor-core kernel, anything else on a device the
-    CUDA-core kernel (module docstring); the kernel's wrapper counts the
-    launch.
+    tensors run the bf16 tensor-core kernel, float32 ones the 3xTF32
+    kernel, anything else on a device the CUDA-core kernel (module
+    docstring); the kernel's wrapper counts the launch.
     """
     if x.device.type == "cpu":
         return fused_frontend_padded_reference(x, bank, bn_p, bn_s)
@@ -95,6 +99,10 @@ def fused_frontend_padded(x: torch.Tensor, bank: torch.Tensor,
         from aasist_tpu_torch.ops.frontend_variants import (
             fused_frontend_dot_padded)
         return fused_frontend_dot_padded(x, bank, bn_p, bn_s)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        from aasist_tpu_torch.ops.frontend_f32 import (
+            fused_frontend_padded_tf32x3)
+        return fused_frontend_padded_tf32x3(x, bank, bn_p, bn_s)
     return fused_frontend_padded_fma(x, bank, bn_p, bn_s)
 
 
@@ -250,8 +258,9 @@ def fused_block0(z: torch.Tensor, block: torch.nn.Module) -> torch.Tensor:
 
     ``block`` is a ``models.layers.ResidualBlock`` from 1 to C channels
     with a downsample; the kernels take C = 32.  bfloat16 CUDA frames run
-    ``block0_pipe``, anything else on a device ``fused_block0_fma`` (module
-    docstring); the kernel's wrapper counts the launch.
+    ``block0_pipe``, float32 ones ``block0_tf32x3``, anything else on a
+    device ``fused_block0_fma`` (module docstring); the kernel's wrapper
+    counts the launch.
     """
     _check_block0(block, "fused_block0")
     if z.device.type == "cpu":
@@ -259,6 +268,9 @@ def fused_block0(z: torch.Tensor, block: torch.nn.Module) -> torch.Tensor:
     if z.device.type == "cuda" and z.dtype == torch.bfloat16:
         from aasist_tpu_torch.ops.block0_pipe import block0_pipe
         return block0_pipe(z, block)
+    if z.device.type == "cuda" and z.dtype == torch.float32:
+        from aasist_tpu_torch.ops.block0_f32 import block0_tf32x3
+        return block0_tf32x3(z, block)
     return fused_block0_fma(z, block)
 
 

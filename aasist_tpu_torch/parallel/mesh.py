@@ -233,19 +233,44 @@ def sync_batch_norm(model: torch.nn.Module, ranks: Optional[Ranks]) -> None:
                 else None
 
 
+# where each rank puts its card's UUID in the rendezvous store
+CARD_KEY = "aasist_tpu_torch/card"
+
+
+def choose_backend(cards: Sequence[Optional[str]]) -> str:
+    """The process group's backend from each rank's card, in rank order:
+    the card's UUID, or None for a rank on the CPU.  NCCL when every rank
+    holds a card of its own (distinct UUIDs: two ranks on two hosts never
+    share one), else Gloo: ranks on the CPU, or two ranks sharing a card,
+    which NCCL refuses."""
+    if not cards or any(c is None for c in cards) \
+            or len(set(cards)) < len(cards):
+        return "gloo"
+    return "nccl"
+
+
+def card_uuid(device: torch.device) -> Optional[str]:
+    """The physical card behind ``device`` (its UUID), None on the CPU.
+    The UUID tells two ranks that see their card under different indices
+    (``CUDA_VISIBLE_DEVICES`` per rank) apart from two that share one."""
+    if device.type != "cuda":
+        return None
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
 def initialize_multihost(coordinator_address: str, num_processes: int,
                          process_id: int, *, device=None,
                          backend: Optional[str] = None,
                          timeout_s: float = DEFAULT_TIMEOUT_S) -> Ranks:
     """Join a process group of ``num_processes`` at ``host:port`` and return
     this process's ``Ranks``.  ``device`` is the rank's device (default:
-    ``cuda:process_id`` modulo the cards, or the CPU without one).  The
-    backend is NCCL when every rank of this host has a card of its own,
-    else Gloo (ranks sharing a card, or the CPU).  Every collective fails
+    ``cuda:process_id`` modulo the cards, or the CPU without one).  Without
+    ``backend``, each rank puts its card's UUID into the rendezvous store
+    and ``choose_backend`` decides on the gathered list: NCCL when every
+    rank has a physical card of its own, else Gloo.  Every collective fails
     after ``timeout_s`` seconds rather than hang on a lost rank."""
     import torch.distributed as dist
 
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
     if device is None:
         device = (f"cuda:{process_id % torch.cuda.device_count()}"
                   if torch.cuda.is_available() else "cpu")
@@ -258,14 +283,21 @@ def initialize_multihost(coordinator_address: str, num_processes: int,
             device = torch.device("cuda", process_id
                                   % torch.cuda.device_count())
         torch.cuda.set_device(device)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    # torch's own rendezvous: under torchrun its agent already serves the
+    # store at this address, and every rank joins that one as a client
+    store, _, _ = next(dist.rendezvous(
+        f"tcp://{coordinator_address}?rank={process_id}"
+        f"&world_size={num_processes}", timeout=timeout))
     if backend is None:
-        backend = ("nccl" if device.type == "cuda"
-                   and torch.cuda.device_count() >= local_world else "gloo")
+        store.set(f"{CARD_KEY}/{process_id}", card_uuid(device) or "")
+        cards = [store.get(f"{CARD_KEY}/{r}").decode() or None
+                 for r in range(num_processes)]
+        backend = choose_backend(cards)
     kwargs = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+        backend, store=dist.PrefixStore("default_pg", store),
+        world_size=num_processes, rank=process_id, timeout=timeout, **kwargs)
     return Ranks(process_id, num_processes, device, True)
 
 

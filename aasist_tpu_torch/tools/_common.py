@@ -9,9 +9,14 @@ from typing import Optional, Tuple
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# H100 SXM data-sheet peaks (dense), for the kernels' bounds
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM data-sheet peaks (dense), for the kernels' bounds.  "tf32x3":
+# float32 products on the tensor cores by the 3xTF32 split, three TF32
+# products (494.5 TFLOP/s dense) for each, which keeps f32 accuracy
+# (csrc/frontend_f32.cu, csrc/block0_f32.cu); a float32 function's least
+# time is the smaller of its CUDA-core and its 3xTF32 bound.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 494.5e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
+F32_PEAKS = ("float32", "tf32x3")
 BLOCK0_CHANNELS = 32
 
 # Per-element gate for the bf16 head's y1 against conv1 + bn2 + SELU
@@ -116,27 +121,67 @@ def _bound(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _bounds(flops: float, nbytes: float, dtype: str, all_bounds: bool):
+    """(least ms, what bounds it) for ``dtype``: for float32 the smaller of
+    the CUDA-core and the 3xTF32 bound.  ``all_bounds``: every candidate
+    instead, {peak: (ms, what bounds it)} (``least_bound`` picks)."""
+    peaks = F32_PEAKS if dtype == "float32" else (dtype,)
+    every = {p: _bound(flops, nbytes, p) for p in peaks}
+    return every if all_bounds else least_bound(every)[:2]
+
+
+def least_bound(every) -> Tuple[float, str, str]:
+    """(ms, what bounds it, the peak) of the least of ``every``, a
+    {peak: (ms, what bounds it)} from a bound's ``all_bounds``."""
+    peak = min(every, key=lambda p: every[p][0])
+    return every[peak][0], every[peak][1], peak
+
+
+def f64_err(out, fn, x, *rest, rows: int = 16) -> float:
+    """max |out - fn(x, *rest) in float64| over the first ``rows`` batch
+    rows: a kernel against its plain version in float64 (tensors, dicts of
+    tensors and modules copied to float64), not gated."""
+    import copy
+
+    import torch
+
+    def f64(a):
+        if isinstance(a, torch.Tensor):
+            return a.double()
+        if isinstance(a, dict):
+            return {k: f64(v) for k, v in a.items()}
+        if isinstance(a, torch.nn.Module):
+            return copy.deepcopy(a).double()
+        return a
+
+    with torch.inference_mode():
+        ref = fn(x[:rows].double(), *(f64(a) for a in rest))
+        return (out[:rows].double() - ref).abs().max().item()
+
+
 def _esize(dtype: str) -> int:
     return 4 if dtype == "float32" else 2
 
 
 def frontend_bound(b: int, length: int, c: int, dtype: str,
-                   padded: bool = False, rows: Optional[int] = None
-                   ) -> Tuple[float, str]:
+                   padded: bool = False, rows: Optional[int] = None,
+                   all_bounds: bool = False):
     """(least ms, what bounds it) for one fused-frontend call: the conv's
     FLOPs over the peak for the type, or the bytes read and written once
-    over the memory rate, whichever is larger.  ``padded``: the output is
-    the zero-bordered frame; ``rows``: it is stored in that many rows."""
+    over the memory rate, whichever is larger; float32 takes the smaller of
+    its CUDA-core and 3xTF32 bounds (``all_bounds``: both, by peak).
+    ``padded``: the output is the zero-bordered frame; ``rows``: it is
+    stored in that many rows."""
     f_out, t_out = c // 3, (length - 128) // 3
     flops = 2.0 * b * (3 * f_out) * (3 * t_out) * 129
     n_out = ((f_out + 2) * (t_out + 2) if padded
              else (rows or f_out) * t_out)
     nbytes = _esize(dtype) * (b * length + c * 129 + b * n_out) + 16
-    return _bound(flops, nbytes, dtype)
+    return _bounds(flops, nbytes, dtype, all_bounds)
 
 
-def stage_bound(stage: str, b: int, length: int, c: int, dtype: str
-                ) -> Tuple[float, str]:
+def stage_bound(stage: str, b: int, length: int, c: int, dtype: str,
+                all_bounds: bool = False):
     """(least ms, what bounds it) for one call of block 0 cut after ``stage``
     (``ops.block0_variants.STAGES``) on the frame of a (b, length) waveform.
     Every stage reads the frame and writes the (b, c, F, T_out) output once;
@@ -153,7 +198,8 @@ def stage_bound(stage: str, b: int, length: int, c: int, dtype: str
       full   the same with all 18: block 0.
 
     The larger of the operations over the peak for the type and the bytes
-    over the memory rate."""
+    over the memory rate; float32 takes the smaller of its CUDA-core and
+    3xTF32 bounds (``all_bounds``: both, by peak)."""
     f, t_z = 23, (length - 128) // 3
     t_out = t_z // 3
     y1 = c * 6 * (f + 1) * min(3 * t_out + 1, t_z)       # multiply-adds
@@ -169,17 +215,18 @@ def stage_bound(stage: str, b: int, length: int, c: int, dtype: str
     }[stage]
     nbytes = (_esize(dtype) * (b * (f + 2) * (t_z + 2) + b * c * f * t_out)
               + 4 * (c * 6 + c + c * c * 6 + c * 3 + c))
-    return _bound(flops, nbytes, dtype)
+    return _bounds(flops, nbytes, dtype, all_bounds)
 
 
-def block0_bound(b: int, length: int, c: int, dtype: str
-                 ) -> Tuple[float, str]:
+def block0_bound(b: int, length: int, c: int, dtype: str,
+                 all_bounds: bool = False):
     """(least ms, what bounds it) for one fused_block0 call on the frame of
     a (b, length) waveform: conv1 at the F + 1 y1 rows and the conv2 and
     downsample taps at the 3 * T_out positions the pool keeps, over the peak
     for the type, or the frame read and the output written once over the
-    memory rate, whichever is larger."""
-    return stage_bound("full", b, length, c, dtype)
+    memory rate, whichever is larger; float32 takes the smaller of its
+    CUDA-core and 3xTF32 bounds (``all_bounds``: both, by peak)."""
+    return stage_bound("full", b, length, c, dtype, all_bounds)
 
 
 def head_bound(b: int, length: int, c: int, dtype: str

@@ -5,19 +5,24 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the eight CUDA sources from csrc/, the eighteen variants of
+  2. build the eleven CUDA sources from csrc/, the eighteen variants of
      fused_block0.cu (its timer build among them) and the four of
      block0_pipe.cu (timer, three timing cuts) with nvcc, all at once;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
      L = 16001 (the sinc frontend on a freq-masked bank there): the
-     frontend, the CUDA-core kernel in both types and the tensor-core
-     kernel's plain store in bf16; the padded frontend likewise, then block
-     0 on its frame (the CUDA-core kernel in f32; in bf16 the older kernel
+     frontend, the CUDA-core kernel in both types, the tensor-core
+     kernel's plain store in bf16 and in f32 the 3xTF32 kernel's and the
+     CUDA-core redesign's (bit for bit the older kernel's, gated); the
+     padded frontend likewise, then block 0 on its frame (in f32 the
+     CUDA-core kernel and the 3xTF32 one, also on frames of four and six
+     of its bands; in bf16 the older kernel
      and the warp-specialised one, with both kernels' phase times from
      their timer builds and the new one's timing cuts; the two bf16
      kernels must agree bit for bit, also on frames of two and three
-     bands); kernel times in turns beside plain, cuDNN-chain and bound;
+     bands); kernel times in turns beside plain, cuDNN-chain and both
+     bounds (f32: CUDA cores and 3xTF32), and in f32 each kernel's error
+     against float64 (not gated);
      then the tensor-core
      frontend in its two probe layouts (bfloat16 only, also at the probes'
      B = 256) and the frontend + block-0 head; then every variant of the
@@ -34,7 +39,10 @@ Phases, each of which raises (exit code 1) on failure:
      and one ragged batch of 128), pipelined two batches deep; a Scorer
      with use_fused_stack=True serves the same requests with the new block
      0, then with the older one; f32 Scorers without kernels, with the
-     CUDA-core frontend and with the CUDA-core pair.  bf16 scores are
+     CUDA-core frontend redesign and with the 3xTF32 pair, then the last
+     two with the older CUDA-core kernels, held to them, and the f32
+     forwards timed
+     with either.  bf16 scores are
      checked against the f32 ones without kernels; on the golden's input,
      f32 logits with each kernel path on and off, f32 against the reference
      golden, and bf16 against f32;
@@ -115,8 +123,9 @@ Phases, each of which raises (exit code 1) on failure:
      mixup step), then configs/AASIST-Robust.conf with use_mixup and
      adv_training through cli.main for phase 9's two epochs on 1 and 2
      ranks; f. the dry run (tools/dryrun_multigpu.py) on 2 ranks; g.
-     utils/profiling.trace around two mesh-Scorer batches, its annotate
-     span and the frontend kernel's launches in the trace (numbers also in
+     utils/profiling.trace around 8 direct launches of a ctypes kernel
+     and around two mesh-Scorer batches: every launch the wrappers counted
+     in the trace, and its annotate span (numbers also in
      chiprun_out/parallel.json); ranks are this script run as
      "chip_smoke.py --worker cli|train ...";
  11. one JSON line describing every ported kernel (the frontend kernels'
@@ -207,6 +216,27 @@ def max_abs_diff(a, b) -> float:
                for x, y in zip(a.split(16), b.split(16)))
 
 
+def bound_fields(bounds: dict, ms: float) -> dict:
+    """The kernels line's bound keys from a bound's ``all_bounds`` dict:
+    the least bound, what bounds it and its peak (float32: the CUDA cores'
+    "float32" or the tensor cores' "tf32x3"), every candidate, and the
+    kernel's share of the least one."""
+    from aasist_tpu_torch.tools._common import least_bound
+
+    bound, by, peak = least_bound(bounds)
+    return dict(bound_ms=bound, bound_by=by, bound_peak=peak,
+                bounds_ms={p: b for p, (b, _) in bounds.items()},
+                bound_share=bound / ms)
+
+
+def bound_text(bounds: dict, ms: float) -> str:
+    f = bound_fields(bounds, ms)
+    alts = ", ".join(f"{p} {b:.4f}" for p, b in f["bounds_ms"].items())
+    return (f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}, "
+            f"{f['bound_peak']}; bounds {alts}), the kernel at "
+            f"{100 * f['bound_share']:.1f} % of it")
+
+
 def profile_forward(model, x, card: str, label: str, fname: str) -> None:
     """Device time of one forward by kernel name, and the device's idle
     share of the window, from torch.profiler."""
@@ -244,11 +274,14 @@ def profile_forward(model, x, card: str, label: str, fname: str) -> None:
         print(f"[profile] {ms:9.3f} ms {n:4d}x  {key[:100]}")
 
 
+# The f32 frontend path's kernel wrapper (ops/fused_frontend.py's float32
+# route): the CUDA-core redesign, bit for bit the older CUDA-core kernel.
+F32_FRONTEND = "fused_frontend_ffma"
 # The eval pipeline (phase 6): each way's model_config keys, and the kernel
 # wrappers it must launch once a batch (every other wrapper not at all).
 EVAL_WAYS = {
     "f32": ({}, ()),
-    "f32_frontend": ({"use_fused_frontend": True}, ("fused_frontend_fma",)),
+    "f32_frontend": ({"use_fused_frontend": True}, (F32_FRONTEND,)),
     "bf16_frontend": ({"dtype": "bfloat16", "use_fused_frontend": True},
                       ("fused_frontend_dot_plain",)),
     "bf16_stack": ({"dtype": "bfloat16", "use_fused_stack": True},
@@ -609,7 +642,7 @@ ZOO_NODE_ORDER_TIES = {"RawGATST": {"LA_E_9900049": 0.19407523}}
 # once a batch, None for none); RawNet2 has no frontend kernel.
 ZOO_WAYS = {
     "f32": (False, False, None),
-    "f32_frontend": (False, True, "fused_frontend_fma"),
+    "f32_frontend": (False, True, F32_FRONTEND),
     "bf16_frontend": (True, True, "fused_frontend_dot_plain"),
     "bf16": (True, False, None),
 }
@@ -617,7 +650,7 @@ ZOO_WAYS = {
 # e2e golden, is held with the kernel against itself without it.
 ZOO_EVAL_WAYS = {
     "f32": ({}, None),
-    "f32_frontend": ({"use_fused_frontend": True}, "fused_frontend_fma"),
+    "f32_frontend": ({"use_fused_frontend": True}, F32_FRONTEND),
     "bf16_frontend": ({"dtype": "bfloat16", "use_fused_frontend": True},
                       "fused_frontend_dot_plain"),
     "bf16": ({"dtype": "bfloat16"}, None),
@@ -1247,7 +1280,7 @@ def train_entry_point(card: str, path_kernels: dict, keep: bool = False
             n_best = len(list((run_dir / "metrics").glob("t-DCF_EER_*")))
             batches = 2 * 2 + 2 * (n_best + 1)
             for name, n in counts.items():
-                want = batches if name == "fused_frontend_fma" else 0
+                want = batches if name == F32_FRONTEND else 0
                 check(n == want, f"{run}: {name} launched {n} times, want "
                       f"{want} (2 epochs x 2 dev batches, {n_best + 1} x 2 "
                       "eval batches; train steps none)")
@@ -1340,6 +1373,8 @@ DP_EVAL_F32 = 1e-5
 DP_EVAL_METRICS = 1e-6
 DP_TRAIN_TOL = {"stats": 1e-4, "loss": 1e-4, "params": 2 * 2 * 1e-4}
 DP_BATCH = 24
+# phase 10g's direct launches of one ctypes kernel inside a trace window
+TRACE_DIRECT = 8
 # the robust extras (phase 10e): the JAX package's defaults, on
 ROBUST_KEYS = {"use_mixup": "True", "adv_training": "True"}
 
@@ -1347,7 +1382,9 @@ ROBUST_KEYS = {"use_mixup": "True", "adv_training": "True"}
 def path_kernel_fns() -> dict:
     """Every kernel wrapper a Scorer or eval path can reach, by name (the
     routers in front of them count nothing)."""
+    from aasist_tpu_torch.ops import block0_f32 as b32
     from aasist_tpu_torch.ops import block0_pipe as bp
+    from aasist_tpu_torch.ops import frontend_f32 as f32
     from aasist_tpu_torch.ops.frontend_variants import (
         fused_frontend_dot_padded, fused_frontend_dot_plain)
     from aasist_tpu_torch.ops.fused_frontend import fused_frontend_fma
@@ -1356,6 +1393,10 @@ def path_kernel_fns() -> dict:
     return {"fused_frontend_dot_plain": fused_frontend_dot_plain,
             "fused_frontend_dot_padded": fused_frontend_dot_padded,
             "block0_pipe": bp.block0_pipe,
+            "fused_frontend_ffma": f32.fused_frontend_ffma,
+            "fused_frontend_tf32x3": f32.fused_frontend_tf32x3,
+            "fused_frontend_padded_tf32x3": f32.fused_frontend_padded_tf32x3,
+            "block0_tf32x3": b32.block0_tf32x3,
             "fused_frontend_fma": fused_frontend_fma,
             "fused_frontend_padded_fma": fused_frontend_padded_fma,
             "fused_block0_mma": fused_block0_mma,
@@ -1573,7 +1614,7 @@ def parallel_phase(card: str, path_kernels: dict, requests, weights):
             ("bf16 stack", {"use_fused_stack": True},
              ("fused_frontend_dot_padded", "block0_pipe")),
             ("f32 frontend", {"bf16": False, "use_fused_frontend": True},
-             ("fused_frontend_fma",))):
+             (F32_FRONTEND,))):
         one = Scorer.from_config(conf_path, weights_path=weights, **kw)
         two = Scorer.from_config(conf_path, weights_path=weights, mesh=m,
                                  **kw)
@@ -1618,34 +1659,61 @@ def parallel_phase(card: str, path_kernels: dict, requests, weights):
         del one, two
         torch.cuda.empty_cache()
 
-    # ---- g: profiling.trace around one mesh-Scorer batch
+    # ---- g: profiling.trace: every launch a wrapper counts is in the
+    # trace, first TRACE_DIRECT direct launches of one ctypes kernel, then
+    # two mesh-Scorer batches (two parts each)
+    from aasist_tpu_torch.ops import frontend_f32 as f32
+    xg = torch.randn((4, 16001), generator=gen, device="cuda") * 0.1
+    bank = load_npz(build_model(load_config(conf_path).model_config),
+                    weights).filterbank.detach().to("cuda")
+    ones = {"weight": torch.ones(1, device="cuda"),
+            "bias": torch.zeros(1, device="cuda")}
+    stats = {"mean": torch.zeros(1, device="cuda"),
+             "var": torch.ones(1, device="cuda")}
+    reset()
+    direct = profiling.launches_in_trace(
+        lambda: f32.fused_frontend_tf32x3(xg, bank, ones, stats),
+        TRACE_DIRECT, "frontend_f32_kernel",
+        ROOT / "chiprun_out" / "profile_direct")
+    counted = counts().get("fused_frontend_tf32x3", 0)
+    print(f"[parallel] g. profiling.trace of {TRACE_DIRECT} direct launches "
+          f"of fused_frontend_tf32x3: {direct['found']} in the trace of "
+          f"{counted - 1} counted in it (one launch before the window); "
+          f"a kernel's start less its launch call {direct['skew_us']} us; "
+          f"launch calls with no kernel (the warm-up's) "
+          f"{direct['n_orphans']}  [{card}]")
+    check(counted == TRACE_DIRECT + 1 and direct["found"] == TRACE_DIRECT,
+          f"trace: {direct['found']} of the {TRACE_DIRECT} direct launches "
+          f"of fused_frontend_tf32x3 ({json.dumps(direct)})")
+    del xg, bank
+
     two = Scorer.from_config(conf_path, weights_path=weights, mesh=m)
     rows = np.stack([np.resize(w, 64600) for w in requests[1][:128]])
     two.score_batch(rows)
     trace_dir = ROOT / "chiprun_out" / "profile_mesh"
-    # two batches in the window: a run of this phase once found one of a
-    # batch's two launches missing from the trace (the wrapper counted
-    # both), so the gate asks for at least one batch's worth
     reset()
-    with profiling.trace(trace_dir):
+    with profiling.trace(trace_dir, devices=m.devices):
         with profiling.annotate("mesh_scorer_batch"):
             two.score_batch(rows)
             two.score_batch(rows)
     n = counts().get("fused_frontend_dot_plain", 0)
     events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
     spans = [e for e in events if e.get("name") == "mesh_scorer_batch"]
-    fe = [e for e in events if e.get("cat") == "kernel"
-          and "frontend_dot_kernel" in e.get("name", "")]
-    check(n == 4 and len(spans) >= 1 and len(fe) >= 2,
-          f"trace: {len(spans)} annotate spans, {len(fe)} frontend kernel "
-          f"launches of the {n} the wrapper counted (want 4, at least 2 in "
-          "the trace)")
-    report["trace"] = {"spans": len(spans), "frontend_launches": len(fe),
-                       "counted": n, "events": len(events)}
+    mesh_trace = profiling.read_trace(trace_dir / "trace.json",
+                                      "frontend_dot_kernel", n)
     print(f"[parallel] g. profiling.trace of two mesh-Scorer batches: "
-          f"{len(events)} events, the annotate span, {len(fe)} of the "
-          f"{n} launches of the frontend kernel "
+          f"{len(events)} events, the annotate span, "
+          f"{mesh_trace['found']} of the {n} launches of the frontend "
+          f"kernel; skew {mesh_trace['skew_us']} us, launch calls with no "
+          f"kernel {mesh_trace['n_orphans']} "
           "(chiprun_out/profile_mesh/trace.json)")
+    check(n == 4 and len(spans) >= 1 and mesh_trace["found"] == 4,
+          f"trace: {len(spans)} annotate spans, {mesh_trace['found']} "
+          f"frontend kernel launches of the {n} the wrapper counted (want 4 "
+          f"of 4; {json.dumps(mesh_trace)})")
+    report["trace"] = {"direct": direct, "spans": len(spans),
+                       "mesh": mesh_trace, "counted": n,
+                       "events": len(events)}
     del two
     torch.cuda.empty_cache()
 
@@ -1664,7 +1732,7 @@ def parallel_phase(card: str, path_kernels: dict, requests, weights):
             reps = _worker_reports(outs)
             n = _summed(reps)
             runs[f"DP --eval {way}"] = n
-            kernel = ("fused_frontend_fma" if way.startswith("f32")
+            kernel = (F32_FRONTEND if way.startswith("f32")
                       else "fused_frontend_dot_plain")
             check(n == {**{k: 0 for k in path_kernels}, kernel: 2},
                   f"DP --eval {way}: launches {n}, want {kernel} once a "
@@ -1867,10 +1935,9 @@ def parallel_phase(card: str, path_kernels: dict, requests, weights):
             n_best = len(list((run_dir / "metrics").glob("t-DCF_EER_*")))
             n = _summed(reps)
             want = world * (2 * 2 + 2 * (n_best + 1))
-            check(n == {**{k: 0 for k in path_kernels},
-                        "fused_frontend_fma": want},
+            check(n == {**{k: 0 for k in path_kernels}, F32_FRONTEND: want},
                   f"robust cli.main, {world} rank(s): launches {n}, want "
-                  f"fused_frontend_fma {want}")
+                  f"{F32_FRONTEND} {want}")
             runs[f"robust training, {world} rank(s)"] = n
             report["robust_cli"][world] = {
                 "losses": ep_losses, "epoch_seconds": secs,
@@ -1923,7 +1990,9 @@ def main() -> int:
     from aasist_tpu_torch.ops import tail_constructs as tc
     from aasist_tpu_torch.ops.frontend_head import (
         fused_frontend_head, fused_frontend_head_reference)
+    from aasist_tpu_torch.ops import block0_f32 as b32
     from aasist_tpu_torch.ops import block0_pipe as bp
+    from aasist_tpu_torch.ops import frontend_f32 as f32
     from aasist_tpu_torch.ops.frontend_variants import (
         fused_frontend_dot_bm, fused_frontend_dot_bm_reference,
         fused_frontend_dot_fm, fused_frontend_dot_fm_reference,
@@ -1942,9 +2011,9 @@ def main() -> int:
         probe_stepcost, probe_tail_constructs)
     from aasist_tpu_torch.tools._common import (
         B0_BF16_EPILOGUES, HEAD_Y1_OWN_X0_TOL, b0_fault, b0_readings,
-        block0_bound, bytes_bound, card_line, cuda_ms, frontend_bound,
-        head_bound, head_y1_excess, max_abs_err, stage_bound,
-        stepcost_bound)
+        block0_bound, bytes_bound, card_line, cuda_ms, f64_err,
+        frontend_bound, head_bound, head_y1_excess, least_bound,
+        max_abs_err, stage_bound, stepcost_bound)
     from aasist_tpu_torch.weights import load_npz
 
     # ---------------------------------------------------------------- 1
@@ -1969,6 +2038,8 @@ def main() -> int:
         variants[json.dumps(d, sort_keys=True)] = d
     variants[json.dumps(bp.TIMER_DEFINES)] = bp.TIMER_DEFINES
     entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
+                                   "frontend_f32", "frontend_ffma",
+                                   "block0_f32",
                                    "frontend_head", "tail_constructs",
                                    "stepcost", "mma_shapes", "block0_pipe")]
     entries += [("block0_pipe", bp.TIMER_DEFINES)]
@@ -2005,10 +2076,13 @@ def main() -> int:
         return F.selu(h)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # the CUDA-core frontend (both types) and, in bf16, the tensor-core
-    # frontend's plain store, each against the plain version
+    # the CUDA-core frontend (both types), in bf16 the tensor-core
+    # frontend's plain store and in f32 the 3xTF32 one and the CUDA-core
+    # redesign (bit for bit the older kernel: gated), each against the
+    # plain version; in f32 every kernel also against float64 (not gated)
     results = {}                       # fused_frontend_fma
     dot_plain_results = {}             # fused_frontend_dot_plain
+    f32_new = {}                       # the f32 redesigns, by name
     cases = [("float32", 128, 64600, False), ("bfloat16", 128, 64600, False),
              ("float32", 3, 16001, True), ("bfloat16", 3, 16001, True)]
     for dname, b, length, masked in cases:
@@ -2027,6 +2101,10 @@ def main() -> int:
         if dname == "bfloat16":
             kernels_here.append(("fused_frontend_dot_plain",
                                  fused_frontend_dot_plain, dot_plain_results))
+        else:
+            kernels_here += [(k, getattr(f32, k), f32_new.setdefault(k, {}))
+                             for k in ("fused_frontend_tf32x3",
+                                       "fused_frontend_ffma")]
         outs = {}
         for kname, fn, store in kernels_here:
             got = fn(x, bank, bn_p, bn_s)
@@ -2043,17 +2121,34 @@ def main() -> int:
             outs[kname] = got
             if b == 128:
                 store[dname] = dict(max_abs_err=err)
-        if len(outs) == 2:
+        if dname == "bfloat16":
             d = (outs["fused_frontend_fma"].float()
                  - outs["fused_frontend_dot_plain"].float()).abs().max()
             print(f"[kernel] {tag}: max|tensor-core - CUDA-core frontend| "
                   f"= {d.item():.3e} (not gated)")
+        else:
+            same = torch.equal(outs["fused_frontend_ffma"],
+                               outs["fused_frontend_fma"])
+            print(f"[kernel] {tag}: fused_frontend_ffma bit for bit "
+                  f"fused_frontend_fma: {same}")
+            check(same, f"fused_frontend_ffma differs from "
+                  f"fused_frontend_fma, {tag}")
+            e64 = {k: f64_err(o, fused_frontend_reference, x, bank, bn_p,
+                              bn_s) for k, o in outs.items()}
+            print(f"[kernel] {tag}: max|kernel - float64 plain|: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
+                  + " (not gated)")
+            if b == 128:
+                results[dname]["f64_err"] = e64["fused_frontend_fma"]
+                for k in f32_new:
+                    f32_new[k][dname]["f64_err"] = e64[k]
         del outs, got
         if b == 128:
             plain = cuda_ms(
                 lambda: fused_frontend_reference(x, bank, bn_p, bn_s), 10)
             libms = cuda_ms(lambda: library_chain(x, bank, bn_p, bn_s), 10)
-            bound, by = frontend_bound(b, length, 70, dname)
+            bounds = frontend_bound(b, length, 70, dname, all_bounds=True)
+            bound, by, peak = least_bound(bounds)
             # in turns: each kernel timed twice, the second time in reverse
             # order
             runs = {k: [] for k, _, _ in kernels_here}
@@ -2063,20 +2158,28 @@ def main() -> int:
             for kname, fn, store in kernels_here:
                 ms = float(np.mean(runs[kname]))
                 store[dname].update(ms=ms, plain_ms=plain, library_ms=libms,
-                                    bound_ms=bound, bound_by=by)
+                                    **bound_fields(bounds, ms))
                 print(f"[kernel] {kname} {tag}: kernel {ms:.4f} ms (runs "
                       f"{[round(v, 4) for v in runs[kname]]}), plain "
-                      f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({by})  [{card}]")
+                      f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, "
+                      f"{bound_text(bounds, ms)}  [{card}]")
+            if dname == "float32":
+                for k in f32_new:
+                    f32_new[k][dname]["replaced_ms"] = float(
+                        np.mean(runs["fused_frontend_fma"]))
         del x, ref
     torch.cuda.empty_cache()
 
-    # the frontend + block-0 pair; block 0's plain version is its cuDNN
-    # chain (conv1, BN, SELU, conv2, downsample, add, max_pool2d).  The
+    # the frontend + block-0 pair (at B = 3 on a freq-masked bank); block
+    # 0's plain version is its cuDNN chain (conv1, BN, SELU, conv2,
+    # downsample, add, max_pool2d).  The
     # padded frontend: the CUDA-core kernel in both types, the tensor-core
-    # one in bf16; block 0: the CUDA-core kernel in f32, in bf16 the older
-    # kernel and the warp-specialised one, on the bf16 frame of the
-    # tensor-core frontend.  Times in turns (old, new, new, old).
+    # one in bf16, the CUDA-core redesign (bit for bit the older kernel:
+    # gated) and the 3xTF32 one in f32; block 0: in f32 the CUDA-core
+    # kernel and the 3xTF32 one, in bf16 the older kernel and the
+    # warp-specialised one, on the frame of the route's frontend (bf16:
+    # the tensor-core one, f32: the 3xTF32 one).  Times in turns (old, new,
+    # new, old); in f32 each kernel also against float64 (not gated).
     stack_results = {"float32": {}, "bfloat16": {}}
     phases = {}
     for dname, b, length in [("float32", 128, 64600),
@@ -2084,10 +2187,12 @@ def main() -> int:
                              ("float32", 3, 16001), ("bfloat16", 3, 16001)]:
         dtype = getattr(torch, dname)
         bf16 = dname == "bfloat16"
-        tag = f"{dname} B={b} L={length}"
+        tag = f"{dname} B={b} L={length}{' masked' if b == 3 else ''}"
         x = (torch.randn((b, length), generator=gen, device="cuda")
              * 0.1).to(dtype)
-        bank = model32.filterbank.detach().to("cuda", dtype)
+        bank = model32.filterbank.detach().to("cuda", dtype).clone()
+        if b == 3:
+            bank[10:20] = 0
         bn_p, bn_s = bn_dicts(dtype)
         block = copy.deepcopy(model32.encoder[0]).to("cuda", dtype)
         res = stack_results[dname] if b == 128 else {}
@@ -2095,10 +2200,14 @@ def main() -> int:
             zr = fused_frontend_padded_reference(x, bank, bn_p, bn_s)
             shape = (b, 25, (length - 128) // 3 + 2)
             tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
+            # the route's kernel last
             fe_kernels = [("fused_frontend_padded", fused_frontend_padded_fma)]
-            if bf16:
-                fe_kernels.append(("fused_frontend_dot_padded",
-                                   fused_frontend_dot_padded))
+            fe_kernels += (
+                [("fused_frontend_dot_padded", fused_frontend_dot_padded)]
+                if bf16 else [("fused_frontend_padded_ffma",
+                               f32.fused_frontend_padded_ffma),
+                              ("fused_frontend_padded_tf32x3",
+                               f32.fused_frontend_padded_tf32x3)])
             frames = {}
             for kname, fn in fe_kernels:
                 z = fn(x, bank, bn_p, bn_s)
@@ -2118,6 +2227,20 @@ def main() -> int:
                       f"{kname} disagrees with its plain version, {tag}")
                 frames[kname] = z
                 res[kname] = dict(max_abs_err=err_z)
+                if not bf16:
+                    res[kname]["f64_err"] = f64_err(
+                        z, fused_frontend_padded_reference, x, bank, bn_p,
+                        bn_s)
+            if not bf16:
+                same = torch.equal(frames["fused_frontend_padded_ffma"],
+                                   frames["fused_frontend_padded"])
+                print(f"[kernel] {tag}: fused_frontend_padded_ffma bit for "
+                      f"bit fused_frontend_padded_fma: {same}")
+                check(same, f"fused_frontend_padded_ffma differs from "
+                      f"fused_frontend_padded_fma, {tag}")
+                print(f"[kernel] {tag}: max|kernel - float64 plain|: "
+                      + ", ".join(f"{k} {res[k]['f64_err']:.3e}"
+                                  for k, _ in fe_kernels) + " (not gated)")
             del zr
             z = frames[fe_kernels[-1][0]]     # the frame the Scorer reads
             del frames
@@ -2127,7 +2250,8 @@ def main() -> int:
             shape = (b, 32, 23, (length - 128) // 9)
             b0_kernels = ([("fused_block0", fused_block0_mma),
                            ("block0_pipe", bp.block0_pipe)] if bf16
-                          else [("fused_block0", fused_block0_fma)])
+                          else [("fused_block0", fused_block0_fma),
+                                ("block0_tf32x3", b32.block0_tf32x3)])
             outs = {}
             for kname, fn in b0_kernels:
                 out = fn(z, block)
@@ -2145,6 +2269,14 @@ def main() -> int:
                       f"{kname} disagrees with its plain version, {tag}")
                 outs[kname] = out
                 res[kname] = dict(max_abs_err=err_b, max_rel_err=err_b / top)
+                if not bf16:
+                    res[kname]["f64_err"] = f64_err(
+                        out, fused_block0_reference, z, block)
+            if not bf16:
+                print(f"[kernel] {tag}: max|kernel - float64 plain| over "
+                      "the first 16 rows: " + ", ".join(
+                          f"{k} {res[k]['f64_err']:.3e}"
+                          for k, _ in b0_kernels) + " (not gated)")
             del ref
             if bf16:
                 same = (outs["fused_block0"].float()
@@ -2179,8 +2311,8 @@ def main() -> int:
                     x, bank, bn_p, bn_s), 10)
                 lib_z = cuda_ms(lambda: F.pad(library_chain(
                     x, bank, bn_p, bn_s)[:, 0], (1, 1, 1, 1)), 10)
-                bound_z, by_z = frontend_bound(b, length, 70, dname,
-                                               padded=True)
+                bounds_z = frontend_bound(b, length, 70, dname, padded=True,
+                                          all_bounds=True)
                 runs = {k: [] for k, _ in fe_kernels}
                 for kname, fn in fe_kernels + fe_kernels[::-1]:
                     runs[kname].append(
@@ -2188,26 +2320,35 @@ def main() -> int:
                 for kname, _ in fe_kernels:
                     ms = float(np.mean(runs[kname]))
                     res[kname].update(ms=ms, plain_ms=plain_z,
-                                      library_ms=lib_z, bound_ms=bound_z,
-                                      bound_by=by_z)
+                                      library_ms=lib_z,
+                                      **bound_fields(bounds_z, ms))
                     print(f"[kernel] {kname} {tag}: kernel {ms:.4f} ms (runs "
                           f"{[round(v, 4) for v in runs[kname]]}), plain "
                           f"{plain_z:.4f} ms, cuDNN chain {lib_z:.4f} ms, "
-                          f"bound {bound_z:.4f} ms ({by_z})  [{card}]")
+                          f"{bound_text(bounds_z, ms)}  [{card}]")
                 plain_b = cuda_ms(lambda: fused_block0_reference(z, block), 5)
-                bound_b, by_b = block0_bound(b, length, 32, dname)
+                bounds_b = block0_bound(b, length, 32, dname, all_bounds=True)
                 runs = {k: [] for k, _ in b0_kernels}
                 for kname, fn in b0_kernels + b0_kernels[::-1]:
                     runs[kname].append(cuda_ms(lambda: fn(z, block), 10))
                 for kname, _ in b0_kernels:
                     ms = float(np.mean(runs[kname]))
                     res[kname].update(ms=ms, plain_ms=plain_b,
-                                      library_ms=plain_b, bound_ms=bound_b,
-                                      bound_by=by_b)
+                                      library_ms=plain_b,
+                                      **bound_fields(bounds_b, ms))
                     print(f"[kernel] {kname} {tag}: kernel {ms:.4f} ms (runs "
                           f"{[round(v, 4) for v in runs[kname]]}), plain (= "
-                          f"the cuDNN chain) {plain_b:.4f} ms, bound "
-                          f"{bound_b:.4f} ms ({by_b})  [{card}]")
+                          f"the cuDNN chain) {plain_b:.4f} ms, "
+                          f"{bound_text(bounds_b, ms)}  [{card}]")
+                if not bf16:
+                    # each new kernel beside the one it replaces, timed in
+                    # the same turns
+                    for new, old in (("fused_frontend_padded_tf32x3",
+                                      "fused_frontend_padded"),
+                                     ("fused_frontend_padded_ffma",
+                                      "fused_frontend_padded"),
+                                     ("block0_tf32x3", "fused_block0")):
+                        res[new]["replaced_ms"] = res[old]["ms"]
                 if bf16:
                     cuts = {}
                     for cut in bp.PIPE_CUTS:
@@ -2249,7 +2390,26 @@ def main() -> int:
                 outs[kname] = out
             check(torch.equal(outs["fused_block0"], outs["block0_pipe"]),
                   f"the two bf16 block-0 kernels differ at F={f}")
-    del block, z, ref, outs
+    # and block0_tf32x3's bands of 8 rows: F = 30 and 47 are four and six
+    # bands, the last one short, in f32
+    block = copy.deepcopy(model32.encoder[0]).to("cuda")
+    with torch.inference_mode():
+        for b, f, t in [(2, 30, 300), (3, 47, 1001)]:
+            z = torch.zeros((b, f + 2, t + 2), device="cuda")
+            z[:, 1:-1, 1:-1] = torch.randn((b, f, t), generator=gen,
+                                           device="cuda")
+            ref = fused_block0_reference(z, block)
+            top = ref.abs().max().item()
+            out = b32.block0_tf32x3(z, block)
+            torch.cuda.synchronize()
+            rel = (out - ref).abs().max().item() / top
+            print(f"[kernel] block0_tf32x3 float32 frame F={f} T_z={t} "
+                  f"B={b}: max|kernel-plain| / max|plain| = {rel:.3e} (gate "
+                  f"{TOL_BLOCK0['float32']})")
+            check(tuple(out.shape) == (b, 32, f, t // 3)
+                  and rel <= TOL_BLOCK0["float32"],
+                  f"block0_tf32x3 disagrees with its plain version, F={f}")
+    del block, z, ref, outs, out
 
     # the frontend on the tensor cores, in its two store layouts (bf16 only)
     dots = {"fused_frontend_dot_fm": (fused_frontend_dot_fm,
@@ -2629,6 +2789,20 @@ def main() -> int:
 
         model.fused_stack = fused_stack
 
+    def older_f32(on):
+        """Route f32 to the older CUDA-core kernels (``on``) or back: the
+        new wrappers' module names, which the routers read at each call,
+        point at the kernels they replaced, so that these runs count the
+        older kernels' launches and time the f32 paths as they were."""
+        for name, mod, old in (
+                (F32_FRONTEND, f32, fused_frontend_fma),
+                ("fused_frontend_padded_tf32x3", f32,
+                 fused_frontend_padded_fma),
+                ("block0_tf32x3", b32, fused_block0_fma)):
+            setattr(mod, name, old if on else path_kernels[name])
+
+    walls = {}                         # serve()'s wall seconds by label
+
     def serve(scorer_, reqs, want, label):
         """Score ``reqs`` through ``scorer_``'s pipelined path and check the
         launch counts: ``want`` maps each kernel that must run to its count,
@@ -2640,6 +2814,7 @@ def main() -> int:
         out = [scorer_.score_waveforms(r) for r in reqs]
         wall = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in path_kernels.items()}
+        walls[label] = wall
         print(f"[main] {label}: served {[len(s) for s in out]} requests in "
               f"{n_batches} batches, {wall:.3f} s; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
@@ -2694,10 +2869,33 @@ def main() -> int:
     s32_stack = Scorer(model32, bf16=False, use_fused_stack=True)
     ref_scores, _ = serve(s32_off, requests, {}, "f32, no kernels")
     f32_scores, f32_launches = serve(s32_on, requests, {
-        "fused_frontend_fma": n_batches}, "f32 frontend kernel")
+        F32_FRONTEND: n_batches}, "f32 frontend kernel")
     f32_stack_scores, f32_stack_launches = serve(s32_stack, requests, {
-        "fused_frontend_padded_fma": n_batches,
-        "fused_block0_fma": n_batches}, "f32 stack")
+        "fused_frontend_padded_tf32x3": n_batches,
+        "block0_tf32x3": n_batches}, "f32 stack")
+    # the same f32 paths with the older CUDA-core kernels: their scores
+    # within the f32 kernels' on/off gate of the new kernels' (the 3xTF32
+    # ones sum f32-accurate products in another order)
+    older_f32(True)
+    f32_old_scores, f32_old_launches = serve(s32_on, requests, {
+        "fused_frontend_fma": n_batches},
+        "f32 frontend kernel, the older kernel")
+    f32_stack_old_scores, f32_stack_old_launches = serve(
+        s32_stack, requests, {"fused_frontend_padded_fma": n_batches,
+                              "fused_block0_fma": n_batches},
+        "f32 stack, the older kernels")
+    older_f32(False)
+    for tag, new_s, old_s in (("f32 kernel", f32_scores, f32_old_scores),
+                              ("f32 stack", f32_stack_scores,
+                               f32_stack_old_scores)):
+        d = max(np.abs(np.asarray(a) - np.asarray(b)).max()
+                for a, b in zip(new_s, old_s))
+        print(f"[main] {tag} scores, new vs the older kernels: max|d| = "
+              f"{d:.3e} (atol {TOL_MODEL_ON_OFF['atol']}, rtol "
+              f"{TOL_MODEL_ON_OFF['rtol']})")
+        check(all(np.allclose(a, b, **TOL_MODEL_ON_OFF)
+                  for a, b in zip(new_s, old_s)),
+              f"{tag}: the new and the older kernels' scores disagree")
     for tag, got_scores in (("f32 kernel", f32_scores),
                             ("f32 stack", f32_stack_scores)):
         err = max(np.abs(np.asarray(a) - np.asarray(b)).max()
@@ -2738,7 +2936,34 @@ def main() -> int:
         print(f"[main] bf16 {tag} logits vs f32: max|d| = {d_bf16:.3e}")
         check(np.allclose(l16, l32, **TOL_BF16_LOGITS),
               f"bf16 {tag} logits off the f32 ones")
-    del s32_on, s32_off, s32_stack, stack
+    # the f32 paths' device forward at batch 128, the new kernels
+    # against the older ones in turns (new, old, old, new)
+    xb32 = torch.from_numpy(np.stack([pad_to_fixed(w)
+                                      for w in requests[1][:128]])).cuda()
+    f32_fwd = {}
+    for sc_, tag, new_run, old_run in (
+            (s32_stack, "f32 stack", "f32 stack",
+             "f32 stack, the older kernels"),
+            (s32_on, "f32 frontend", "f32 frontend kernel",
+             "f32 frontend kernel, the older kernel")):
+        runs = {False: [], True: []}
+        for old in (False, True, True, False):
+            older_f32(old)
+            with torch.inference_mode():
+                runs[old].append(cuda_ms(lambda: sc_.model(xb32), 3,
+                                         warmup=1))
+        older_f32(False)
+        f32_fwd[tag] = {"new_ms": float(np.mean(runs[False])),
+                        "older_ms": float(np.mean(runs[True])),
+                        "scorer_s": walls[new_run],
+                        "scorer_older_s": walls[old_run]}
+        print(f"[main] {tag} forward, batch 128: new kernels "
+              f"{f32_fwd[tag]['new_ms']:.3f} ms, the older kernels "
+              f"{f32_fwd[tag]['older_ms']:.3f} ms (runs, older: "
+              f"{ {k: [round(v, 3) for v in r] for k, r in runs.items()} }); "
+              f"the Scorer's {n_batches} batches above {walls[new_run]:.3f} "
+              f"s against {walls[old_run]:.3f} s  [{card}]")
+    del s32_on, s32_off, s32_stack, stack, xb32
 
     # ---------------------------------------------------------------- 5
     # utt/s over 5 batches of 128 requests: through score_waveforms,
@@ -2933,21 +3158,60 @@ def main() -> int:
          "eval_launches": eval_launches["bf16_stack"]["block0_pipe"],
          "phases_ms": phases.get("block0_pipe"), "dtype": "bfloat16",
          "shape": [128, 64600], "path": "bf16 stack"},
+        {"name": "fused_frontend_ffma", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/frontend_ffma.cu",
+         "replaces": "aasist_tpu/ops/fused_frontend.py:79",
+         "launches": f32_launches["fused_frontend_ffma"],
+         "eval_launches": eval_launches["f32_frontend"][
+             "fused_frontend_ffma"],
+         "zoo_launches": zoo_runs("fused_frontend_ffma"),
+         **f32_new["fused_frontend_ffma"]["float32"],
+         "dtype": "float32", "shape": [128, 64600],
+         "path": "f32 frontend kernel",
+         "forward_ms": f32_fwd["f32 frontend"]},
+        # the two f32 redesigns on no path: the 3xTF32 plain store (it tips
+        # LA99's node-order tie, so the f32 frontend path keeps the CUDA
+        # cores) and the CUDA-core padded store (the 3xTF32 one is faster)
+        {"name": "fused_frontend_tf32x3", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/frontend_f32.cu",
+         "replaces": "aasist_tpu/ops/fused_frontend.py:79",
+         "launches": f32_launches["fused_frontend_tf32x3"],
+         **f32_new["fused_frontend_tf32x3"]["float32"],
+         "dtype": "float32", "shape": [128, 64600], "path": None},
+        {"name": "fused_frontend_padded_ffma", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/frontend_ffma.cu",
+         "replaces": "tools/fused_stack.py:180",
+         "launches": f32_stack_launches.get("fused_frontend_padded_ffma", 0),
+         **s32["fused_frontend_padded_ffma"], "dtype": "float32",
+         "shape": [128, 64600], "path": None},
+        {"name": "fused_frontend_padded_tf32x3", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/frontend_f32.cu",
+         "replaces": "tools/fused_stack.py:180",
+         "launches": f32_stack_launches["fused_frontend_padded_tf32x3"],
+         **s32["fused_frontend_padded_tf32x3"], "dtype": "float32",
+         "shape": [128, 64600], "path": "f32 stack"},
+        {"name": "block0_tf32x3", "route": "cuda",
+         "source": "aasist_tpu_torch/csrc/block0_f32.cu",
+         "replaces": "tools/fused_stack.py:250",
+         "launches": f32_stack_launches["block0_tf32x3"],
+         **s32["block0_tf32x3"], "dtype": "float32", "shape": [128, 64600],
+         "path": "f32 stack", "forward_ms": f32_fwd["f32 stack"]},
+        # the CUDA-core kernels the f32 routes left, their launches from
+        # the same f32 paths run with them (older_f32)
         {"name": "fused_frontend", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/fused_frontend.cu",
          "replaces": "aasist_tpu/ops/fused_frontend.py:79",
-         "launches": f32_launches["fused_frontend_fma"],
-         "eval_launches": eval_launches["f32_frontend"][
-             "fused_frontend_fma"],
-         "zoo_launches": zoo_runs("fused_frontend_fma"),
+         "launches": f32_old_launches["fused_frontend_fma"],
          **results["bfloat16"], "dtype": "bfloat16", "shape": [128, 64600],
-         "path": "f32 frontend kernel", "float32": results["float32"]},
+         "path": "f32 frontend kernel with the older kernel (chip_smoke.py)",
+         "float32": results["float32"]},
         {"name": "fused_frontend_padded", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/fused_frontend.cu",
          "replaces": "tools/fused_stack.py:180",
-         "launches": f32_stack_launches["fused_frontend_padded_fma"],
+         "launches": f32_stack_old_launches["fused_frontend_padded_fma"],
          **s16["fused_frontend_padded"], "dtype": "bfloat16",
-         "shape": [128, 64600], "path": "f32 stack",
+         "shape": [128, 64600],
+         "path": "f32 stack with the older kernels (chip_smoke.py)",
          "float32": s32["fused_frontend_padded"]},
         {"name": "fused_block0", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/fused_block0.cu",
@@ -2957,7 +3221,7 @@ def main() -> int:
          "shape": [128, 64600],
          "path": "bf16 stack with the older block 0 (chip_smoke.py)",
          "float32": {**s32["fused_block0"], "launches":
-                     f32_stack_launches["fused_block0_fma"]}},
+                     f32_stack_old_launches["fused_block0_fma"]}},
     ]
     probes = {"fused_frontend_dot_fm": "tools/probe_frontend_variants.py:62",
               "fused_frontend_dot_bm": "tools/probe_fe_fix.py:43"}

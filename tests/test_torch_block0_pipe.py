@@ -25,7 +25,9 @@ from aasist_tpu.models.layers import sinc_filterbank
 from aasist_tpu.ops.fused_frontend import fused_frontend as jax_fused_frontend
 
 from aasist_tpu_torch.models.layers import ResidualBlock
+from aasist_tpu_torch.ops import block0_f32 as b32
 from aasist_tpu_torch.ops import block0_pipe as bp
+from aasist_tpu_torch.ops import frontend_f32 as f32
 from aasist_tpu_torch.ops import frontend_variants as fv
 from aasist_tpu_torch.ops import fused_frontend as fe
 from aasist_tpu_torch.ops import fused_stack as fs
@@ -237,7 +239,9 @@ def _args(b=2, length=1000):
 KERNELS = [(fv, "fused_frontend_dot_plain"), (fv, "fused_frontend_dot_padded"),
            (fe, "fused_frontend_fma"), (fs, "fused_frontend_padded_fma"),
            (bp, "block0_pipe"), (fs, "fused_block0_mma"),
-           (fs, "fused_block0_fma")]
+           (fs, "fused_block0_fma"), (f32, "fused_frontend_tf32x3"),
+           (f32, "fused_frontend_padded_tf32x3"), (b32, "block0_tf32x3"),
+           (f32, "fused_frontend_ffma"), (f32, "fused_frontend_padded_ffma")]
 
 
 def _counts():
@@ -283,15 +287,27 @@ class _FakeCuda:
         return self._c
 
 
+# float32's case keeps the id it had when both stores took the CUDA-core
+# kernel: the plain store now takes the CUDA-core redesign, the padded one
+# the 3xTF32 kernel
+_F32_ROUTES = {"fused_frontend": "fused_frontend_ffma",
+               "fused_frontend_padded": "fused_frontend_padded_tf32x3"}
+
+
 @pytest.mark.parametrize("dtype,kernel", [
     (torch.bfloat16, "fused_frontend_dot_"),
-    (torch.float32, "fused_frontend_(padded_)?fma"),
+    pytest.param(torch.float32, _F32_ROUTES,
+                 id="dtype1-fused_frontend_(padded_)?fma"),
     (torch.float16, "fused_frontend_(padded_)?fma")])
 @pytest.mark.parametrize("router", ["fused_frontend", "fused_frontend_padded"])
 def test_frontends_route_by_type(router, dtype, kernel):
-    """On a card, bf16 goes to the tensor-core kernel and anything else to
-    the CUDA-core kernel: the guards of the kernel picked name it (a strided
-    waveform here), and nothing is counted."""
+    """On a card, bf16 goes to the bf16 tensor-core kernel, float32's plain
+    store to the CUDA-core redesign and its padded store to the 3xTF32
+    kernel, anything else to the older CUDA-core kernel: the guards of the
+    kernel picked name it (a strided waveform here), and nothing is
+    counted."""
+    if isinstance(kernel, dict):
+        kernel = f"{kernel[router]}:"
     fn = getattr(fe if router == "fused_frontend" else fs, router)
     x = _FakeCuda(torch.zeros((2, 1000), dtype=dtype), contiguous=False)
     bank = _FakeCuda(torch.zeros((70, 129), dtype=dtype))
@@ -304,7 +320,8 @@ def test_frontends_route_by_type(router, dtype, kernel):
 
 @pytest.mark.parametrize("dtype,kernel,exc", [
     (torch.bfloat16, "block0_pipe", ValueError),
-    (torch.float32, "fused_block0_fma", ValueError),
+    pytest.param(torch.float32, "block0_tf32x3", ValueError,
+                 id="dtype1-fused_block0_fma-ValueError"),
     (torch.float16, "fused_block0_fma", TypeError)])
 def test_block0_routes_by_type(dtype, kernel, exc):
     z = _FakeCuda(torch.zeros((2, 25, 300), dtype=dtype), contiguous=False)

@@ -39,6 +39,83 @@ def test_trace_holds_the_annotated_span(tmp_path):
     assert any(n and "mm" in n for n in names)
 
 
+def test_trace_warm_up_grows_with_the_processes_age():
+    """A window's warm-up lasts 1 ms plus 1e-4 s a second of the process's
+    age, at most 0.1 s: some 20 times the 0.9 ms of launches an H100 lost
+    at 175 s of age, and never seconds of waiting in an old process."""
+    assert profiling.warm_up_s(0.0) == pytest.approx(1e-3)
+    assert profiling.warm_up_s(175.0) > 20 * 0.9e-3
+    assert profiling.warm_up_s(990.0) == pytest.approx(0.1)
+    assert profiling.warm_up_s(10 * 3600.0) == profiling.WARM_UP_MAX_S == 0.1
+
+
+def test_trace_warms_up_only_the_bodys_cards(monkeypatch):
+    """The current card by default, else each card named once; a CPU
+    device names none."""
+    monkeypatch.setattr(profiling.torch.cuda, "current_device", lambda: 2)
+    cuda = profiling.torch.device
+    assert profiling._cards(None) == [cuda("cuda", 2)]
+    assert profiling._cards(["cuda:0", "cuda:0", "cpu", "cuda"]) == [
+        cuda("cuda", 0), cuda("cuda", 2)]
+    assert profiling._cards(["cpu"]) == []
+
+
+def _trace_file(tmp_path, events):
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    return path
+
+
+def test_read_trace_counts_the_bodys_kernels(tmp_path):
+    """The body starts where the warm-up span ends; a launch call with no
+    kernel event is an orphan (the warm-up's), a kernel's start less its
+    call's is the skew."""
+    events = [
+        {"name": "PyTorch Profiler (0)", "ph": "X", "ts": 100, "dur": 900},
+        {"name": profiling.WARM_UP_SPAN, "ph": "X", "ts": 110, "dur": 90},
+        {"name": "cudaLaunchKernel", "cat": "cuda_runtime", "ts": 150,
+         "args": {"correlation": 1}},
+        {"name": "cudaLaunchKernel", "cat": "cuda_runtime", "ts": 300,
+         "args": {"correlation": 2}},
+        {"name": "cudaLaunchKernel", "cat": "cuda_runtime", "ts": 400,
+         "args": {"correlation": 3}},
+        {"name": "my_kernel<float>", "cat": "kernel", "ts": 310,
+         "args": {"correlation": 2}},
+        {"name": "my_kernel<float>", "cat": "kernel", "ts": 405,
+         "args": {"correlation": 3}},
+    ]
+    assert profiling.body_window_us(events) == (200.0, 1000.0)
+    res = profiling.read_trace(_trace_file(tmp_path, events), "my_kernel", 2)
+    assert res["found"] == 2 and res["launches"] == 2
+    assert res["starts_us"] == [110.0, 205.0]
+    assert res["body_us"] == 800.0
+    assert res["n_orphans"] == 1 and res["orphans_us"] == [-50.0]
+    assert res["skew_us"] == [5.0, 10.0]
+    assert res["launch_calls"] == {"cudaLaunchKernel": 3}
+
+
+def test_body_window_without_a_warm_up_is_the_window(tmp_path):
+    events = [{"name": "PyTorch Profiler (0)", "ph": "X", "ts": 5,
+               "dur": 20}]
+    assert profiling.body_window_us(events) == (5.0, 25.0)
+
+
+def test_trace_warm_up_is_skipped_without_a_card(tmp_path, monkeypatch):
+    """On the CPU the window holds only the body: no warm-up span."""
+    monkeypatch.setattr(profiling.torch.cuda, "is_available", lambda: False)
+    with profiling.trace(tmp_path / "t"):
+        torch.ones(4) + 1
+    events = json.loads((tmp_path / "t" / "trace.json").read_text())
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert profiling.WARM_UP_SPAN not in names
+
+
+def test_process_age_is_the_processes_life():
+    age = profiling.process_age_s()
+    assert 0.0 <= age < 7 * 24 * 3600
+    assert profiling.process_age_s() >= age
+
+
 def _zip(path, root):
     with zipfile.ZipFile(path, "w") as zf:
         zf.writestr(f"{root}/ASVspoof2019_LA_cm_protocols/x.txt", "a b c\n")
