@@ -77,6 +77,54 @@
 //   B0P_CUT=bits  timing only, the output is meaningless: 1 the producers
 //               compute no y1, 2 the consumers run no MMA loop.  3 leaves
 //               the skeleton: frame loads, hand-offs, downsample, store.
+//
+// The block-0 probes' builds (ops/block0_variants.py states each one's
+// function).  They replace the TPU kernels tools/probe_b0_constructs.py:
+// _kernel (launched by its run) and tools/probe_b0_epi.py:_kernel (its
+// run), as csrc/fused_block0.cu's builds of the same names did on the
+// older kernel, which stay as the builds these are timed against.  Their
+// bound is block 0's (0.82 ms of tensor-core operations at B = 128); what
+// they measure is what each construct costs on this kernel, whose
+// producers and consumers overlap:
+//
+//   B0_EPI=1..4  where the producers' conv1 epilogue rounds to bf16:
+//                1 (vA, the bf16epi construct) conv1's f32 sum is rounded,
+//                  the shift added and SELU run on packed __nv_bfloat162
+//                  pairs, every operation rounded to bf16; the consumers
+//                  round the downsample to bf16 and add its bias in bf16,
+//                  and add conv2's bias after the max;
+//                4 (vF) as 1 with SELU's exponential and its "- 1" in f32;
+//                2 (vB) f32 SELU, rounded, the halo mask applied in bf16;
+//                3 (vD) f32 SELU, the halo mask applied in f32, rounded.
+//                This kernel masks only the runs that cross a time edge
+//                (the rest need none), so 2 and 3 move the mask there and
+//                nowhere else; the older kernel multiplied every value by
+//                its mask.
+//   B0_RMW       conv2's partial sums leave the registers after each tap:
+//                the consumers accumulate them by read-modify-write into an
+//                f32 tile in shared memory and read them back for the pool.
+//                The tile is a lane's 48 sums, 12 16-byte words (one
+//                ld / st.shared.v4 each, where the older build moved one f32
+//                word an access), 49,152 bytes over the eight consumer
+//                warps, which the 12,976 bytes this kernel leaves free
+//                cannot hold.  So the words lie in the y1 buffers' channel
+//                padding (channels 32..39 of every y1 column, 16 bytes that
+//                neither the producers' stores nor ldmatrix touch: 2,400
+//                words in both buffers), and the last 672 in 10,752 bytes
+//                past the small tables.  Nothing else changes: both y1
+//                buffers, the frame ring and the loop order stay, and a
+//                quarter warp's eight words are 80 bytes apart in the
+//                padding (contiguous past it), which no two of its lanes
+//                share a bank in.
+//   B0_B2SLICE   the bias added after the max is read from shared memory
+//                through a volatile pointer at each pooled column: the
+//                default reads bs[] once a channel a row, a read the
+//                compiler may keep in a register across rows.
+//
+// The bf16 epilogues read `bias` as (3, C): conv2's bias plus the
+// downsample's, the downsample's, conv2's; every other build reads the
+// first row (ops/block0_variants.py passes all three to every probe
+// build).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +132,9 @@
 
 #include "b0_timer.cuh"
 
+#ifndef B0_EPI
+#define B0_EPI 0
+#endif
 #ifndef B0P_CUT
 #define B0P_CUT 0
 #endif
@@ -94,6 +145,21 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int CUT = B0P_CUT;
 static_assert(CUT >= 0 && CUT < 4, "unknown cut");
+constexpr int EPI = B0_EPI;       // conv1's epilogue (0: f32, rounded once)
+constexpr bool BF16_EPI = EPI == 1 || EPI == 4;
+static_assert(EPI >= 0 && EPI <= 4, "unknown epilogue");
+#ifdef B0_RMW
+constexpr bool RMW = true;
+#else
+constexpr bool RMW = false;
+#endif
+#ifdef B0_B2SLICE
+constexpr bool B2SLICE = true;
+#else
+constexpr bool B2SLICE = false;
+#endif
+constexpr int NBIAS = BF16_EPI ? 3 : 1;  // bias rows: sum, downsample's,
+                                         // conv2's
 
 constexpr int C = 32;             // block-0 channels (filts[1][1])
 constexpr int TO = 16;            // pooled columns per item
@@ -121,9 +187,19 @@ static_assert(16 * MT == TP && 2 * MT == 3 * U, "a row's pool windows");
 constexpr int W2_SZ = 6 * C * CIS;          // bf16 [tap][co][ci]
 constexpr int Y1_SZ = YR * YW * CIS;        // bf16 [row][col][ci], per buffer
 constexpr int ZT_SZ = ZR * ZP;              // bf16 frame tile, per stage
-constexpr size_t SMEM = (W2_SZ + 2 * Y1_SZ + NSTAGE * ZT_SZ) * 2 +
-                        NSTAGE * ZR * sizeof(int) + (C * 3 + C) * 4;
-static_assert((W2_SZ + 2 * Y1_SZ + NSTAGE * ZT_SZ) * 2 % 16 == 0, "align");
+// B0_RMW: the consumers' 16-byte words, 12 a lane; the first Y1_SLOTS in
+// the y1 columns' padding, the rest in RMW_EXTRA bytes past the tables
+constexpr int RMW_WORDS = 32 * CWARPS * MT * 4;
+constexpr int Y1_SLOTS = 2 * YR * YW;
+constexpr int RMW_EXTRA = RMW ? (RMW_WORDS - Y1_SLOTS) * 16 : 0;
+static_assert(CIS - C == 8 && Y1_SLOTS % 32 == 0 && RMW_WORDS > Y1_SLOTS,
+              "a warp's word j lies wholly in the padding or past it");
+constexpr int TABLES = (W2_SZ + 2 * Y1_SZ + NSTAGE * ZT_SZ) * 2 +
+                       NSTAGE * ZR * (int)sizeof(int) + (C * 3 + NBIAS * C) * 4;
+constexpr size_t SMEM = TABLES + RMW_EXTRA;
+static_assert((W2_SZ + 2 * Y1_SZ + NSTAGE * ZT_SZ) * 2 % 16 == 0 &&
+              TABLES % 16 == 0, "align");
+static_assert(SMEM <= 232448, "shared memory");
 
 // Named barriers: 0 is __syncthreads.
 constexpr int BAR_PRODUCERS = 1;            // the producers among themselves
@@ -157,6 +233,26 @@ __device__ __forceinline__ float selu_nb(float z) {
   const unsigned m = z > 0.f ? 0xffffffffu : 0u;
   return __uint_as_float((__float_as_uint(pos) & m) |
                          (__float_as_uint(neg) & ~m));
+}
+
+// SELU on a pair of bf16 values, every operation rounded to bf16 (the _rn
+// intrinsics keep the multiplies and the add from being contracted);
+// F32EXP: the exponential and its "- 1" in f32, rounded once.  As
+// csrc/fused_block0.cu's.
+template <bool F32EXP>
+__device__ __forceinline__ __nv_bfloat162 selu_bf16x2(__nv_bfloat162 y) {
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  const __nv_bfloat162 pos = __hmax2(y, zero), neg = __hmin2(y, zero);
+  __nv_bfloat162 t;
+  if constexpr (F32EXP) {
+    const float2 n = __bfloat1622float2(neg);
+    t = __floats2bfloat162_rn(__expf(n.x) - 1.f, __expf(n.y) - 1.f);
+  } else {
+    t = __hsub2_rn(h2exp(neg), __float2bfloat162_rn(1.f));
+  }
+  return __hadd2_rn(
+      __hmul2_rn(__float2bfloat162_rn(SELU_SCALE), pos),
+      __hmul2_rn(__float2bfloat162_rn(SELU_SCALE * SELU_ALPHA), t));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -194,6 +290,28 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(addr));
+}
+
+// B0_RMW's words: four f32 sums to / from shared memory, never held over
+// in registers by the compiler
+__device__ __forceinline__ void st_f4(uint32_t addr, const float* v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void ld_f4(uint32_t addr, float* v) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// B0_RMW: the address of the CTA's word h (the header says where it lies)
+__device__ __forceinline__ uint32_t rmw_word(uint32_t y1_base,
+                                             uint32_t extra_base, int h) {
+  return h < Y1_SLOTS ? y1_base + (h * CIS + C) * 2
+                      : extra_base + (h - Y1_SLOTS) * 16;
 }
 
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
@@ -263,27 +381,46 @@ __device__ __forceinline__ float bf(const bf16 v) {
 // sa / sb, z0 / z1 the frame's two rows from the run's first column), SELU,
 // rounded, stored at dst + j CIS.  MASK: zero at times outside 0 .. T_z - 1
 // (t0: the time of the first column); a run wholly inside needs no mask.
+// B0_EPI picks the epilogue (the header): the bf16 ones start the sum at 0
+// and add the shift after its rounding.
 template <bool MASK>
 __device__ __forceinline__ void conv1_run(const float* z0, const float* z1,
                                           const float* wa, const float* wb,
                                           float sa, float sb, bf16* dst,
                                           int t0, int T_z) {
+  const __nv_bfloat162 sh2 = __floats2bfloat162_rn(sa, sb);
 #pragma unroll
   for (int j = 0; j < RUN; ++j) {
-    float a = sa, b = sb;
+    float a = BF16_EPI ? 0.f : sa, b = BF16_EPI ? 0.f : sb;
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       a = fmaf(wa[q], z0[j + q], fmaf(wa[3 + q], z1[j + q], a));
       b = fmaf(wb[q], z0[j + q], fmaf(wb[3 + q], z1[j + q], b));
     }
-    float ya = selu_nb(a), yb = selu_nb(b);
-    if constexpr (MASK) {                // +0 outside the y1 extent
-      const unsigned m = t0 + j >= 0 && t0 + j < T_z ? 0xffffffffu : 0u;
-      ya = __uint_as_float(__float_as_uint(ya) & m);
-      yb = __uint_as_float(__float_as_uint(yb) & m);
+    const bool in = t0 + j >= 0 && t0 + j < T_z;
+    __nv_bfloat162 y;
+    if constexpr (BF16_EPI || EPI == 2) {
+      if constexpr (BF16_EPI)
+        y = selu_bf16x2<EPI == 4>(
+            __hadd2_rn(__floats2bfloat162_rn(a, b), sh2));
+      else
+        y = __floats2bfloat162_rn(selu_nb(a), selu_nb(b));
+      if constexpr (MASK)                // the mask in bf16
+        y = __hmul2_rn(y, __float2bfloat162_rn(in ? 1.f : 0.f));
+    } else {
+      float ya = selu_nb(a), yb = selu_nb(b);
+      if constexpr (MASK && EPI == 3) {  // the mask in f32, then rounded
+        const float m = in ? 1.f : 0.f;
+        ya *= m;
+        yb *= m;
+      } else if constexpr (MASK) {       // +0 outside the y1 extent
+        const unsigned m = in ? 0xffffffffu : 0u;
+        ya = __uint_as_float(__float_as_uint(ya) & m);
+        yb = __uint_as_float(__float_as_uint(yb) & m);
+      }
+      y = __floats2bfloat162_rn(ya, yb);
     }
-    *reinterpret_cast<__nv_bfloat162*>(dst + j * CIS) =
-        __floats2bfloat162_rn(ya, yb);
+    *reinterpret_cast<__nv_bfloat162*>(dst + j * CIS) = y;
   }
 }
 
@@ -300,7 +437,8 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
   bf16* zts = y1b + 2 * Y1_SZ;                       // NSTAGE frame tiles
   int* offs = reinterpret_cast<int*>(zts + NSTAGE * ZT_SZ);
   float* wds = reinterpret_cast<float*>(offs + NSTAGE * ZR);
-  float* bs = wds + C * 3;
+  float* bs = wds + C * 3;                           // NBIAS rows
+  float* rmw_extra = bs + NBIAS * C;                 // B0_RMW's last words
 
   const int tid = threadIdx.x;
 #ifdef B0P_TIMER
@@ -326,7 +464,7 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
     w2b[(tap * C + row) * CIS + ci] = __float2bfloat16(w2[i]);
   }
   for (int i = tid; i < C * 3; i += THREADS) wds[i] = wd[i];
-  for (int i = tid; i < C; i += THREADS) bs[i] = bias[i];
+  for (int i = tid; i < NBIAS * C; i += THREADS) bs[i] = bias[i];
   if constexpr ((CUT & 1) != 0)        // a cut phase leaves its tile unset
     for (int i = tid; i < 2 * Y1_SZ; i += THREADS)
       y1b[i] = __float2bfloat16(0.f);
@@ -423,6 +561,9 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
     const uint32_t b_base =
         smem_u32(w2b) +
         ((((lane >> 4) * 8 + (lane & 7)) * CIS) + ((lane >> 3) & 1) * 8) * 2;
+    // B0_RMW: word j = 4 m + n of this lane is the CTA's word h0 + 32 j
+    const int h0 = warp * (MT * 4 * 32) + lane;
+    const uint32_t y1_u32 = smem_u32(y1b), extra_u32 = smem_u32(rmw_extra);
 
     for (int k = 0;; ++k) {
       const int work = blockIdx.x + k * gridDim.x;
@@ -466,6 +607,32 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
                 for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, b[n]);
               }
             }
+            if constexpr (RMW) {         // this tap's partial sums
+#pragma unroll
+              for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int n = 0; n < 4; ++n) {
+                  const uint32_t w =
+                      rmw_word(y1_u32, extra_u32, h0 + 32 * (4 * m + n));
+                  if (tap > 0) {
+                    float t[4];
+                    ld_f4(w, t);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[m][n][e] += t[e];
+                  }
+                  st_f4(w, acc[m][n]);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+                }
+            }
+          }
+          if constexpr (RMW) {           // read back for the pool
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+                ld_f4(rmw_word(y1_u32, extra_u32, h0 + 32 * (4 * m + n)),
+                      acc[m][n]);
           }
         }
         mark(10);
@@ -491,17 +658,27 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
             const int co = 8 * q + 2 * n + par;
             const float d0 = wds[co * 3], d1 = wds[co * 3 + 1],
                         d2 = wds[co * 3 + 2];
-            const float bo = bs[co];
+            // the bias added after the max: the sum, or conv2's for the
+            // bf16 epilogues, which add the downsample's (dsb) in bf16
+            const int bo_at = (BF16_EPI ? 2 * C : 0) + co;
+            float bo = 0.f, dsb = 0.f;
+            if constexpr (!B2SLICE) bo = bs[bo_at];
+            if constexpr (BF16_EPI) dsb = bs[C + co];
 #pragma unroll
             for (int u = 0; u < U; ++u) {
               float v[3];
 #pragma unroll
               for (int j = 0; j < 3; ++j) {
                 const int slot = 3 * u + j;
-                const float ds = fmaf(d0, zz[u][j],
-                                      fmaf(d1, zz[u][j + 1], d2 * zz[u][j + 2]));
+                float ds = fmaf(d0, zz[u][j],
+                                fmaf(d1, zz[u][j + 1], d2 * zz[u][j + 2]));
+                if constexpr (BF16_EPI)
+                  ds = __bfloat162float(__hadd_rn(__float2bfloat16(ds),
+                                                  __float2bfloat16(dsb)));
                 v[j] = acc[slot / 2][n][2 * (slot % 2) + par] + ds;
               }
+              if constexpr (B2SLICE)
+                bo = static_cast<const volatile float*>(bs)[bo_at];
               o[u][par] = fmaxf(fmaxf(v[0], v[1]), v[2]) + bo;
             }
           }
@@ -558,7 +735,8 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
 // (B, channels, F, T_z / 3) tensor).  Float32 on the device: w1 (C, 6) conv1 taps [df*3+dt]
 // times the bn2 scale, sh1 (C) the folded shift, w2 (C, 6, C) conv2 taps
 // [ci][df*3+dt][co], wd (C, 3) downsample taps, bias (C) conv2 bias +
-// downsample bias (ops/fused_stack.py:fold_block0).  channels must be 32;
+// downsample bias (ops/fused_stack.py:fold_block0), or (3, C) in the
+// bf16 epilogues' builds (the header).  channels must be 32;
 // n_tiles = ceil(T_out / 16), n_bands = ceil(F / 23), n_work = B n_bands
 // n_tiles (ops/block0_pipe.py:pipe_work).  Returns the launch's cudaError_t
 // (0 on success).

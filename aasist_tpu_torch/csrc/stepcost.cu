@@ -21,17 +21,37 @@
 //           layout
 //
 // What bounds them on the H100: bytes.  Every mode reads its rows of x once
-// and writes its output once against 3.35 TB/s (nop 1.35 GB written at
-// B = 128, T = 7168; matblk 1.59 GB read and 1.88 GB written); matmul's
-// 2.6e11 FLOP would take 0.26 ms at the tensor cores' 989 TFLOP/s against
-// 0.86 ms of bytes.
+// and writes its output once against 3.35 TB/s (at B = 128, T = 7168: nop
+// 1.35 GB written, 0.403 ms; nopF32 and nopblk 0.561 ms; copy 0.806 ms;
+// matblk 1.59 GB read and 1.88 GB written); matmul's 2.6e11 FLOP would take
+// 0.26 ms at the tensor cores' 989 TFLOP/s against 0.86 ms of bytes.
 //
 // What the design does about it.  A TPU step's block of x is 32 g 32 u
 // values, 4.2 MB at (g, u) = (8, 256) and 67 MB at (32, 1024): far more than
 // a CTA's 227 KB of shared memory, so a CTA streams its step.
-// - nop / copy: a warp takes (channel, batch row) planes of the step and
-//   moves each row of u times in 16-byte vectors, lanes on neighbouring
-//   vectors; copy issues eight rows' loads before their stores.
+// - nop, nopF32, copy: the step's output goes out by TMA stores
+//   (cp.async.bulk.tensor, the counterpart of a Pallas output BlockSpec),
+//   a box of (ub times, 23 or 32 rows, 1 batch row, cb channels) at a time:
+//   ub = u / nbox for the fewest boxes along time that keep ub <= 256 and a
+//   multiple of 8, cb the most channels (a power of two) that keep a box
+//   within 16 KB, so that three boxes a CTA let all of block 0's grid (448
+//   CTAs at (8, 256)) be resident at once.  The tensor maps are encoded on
+//   the host with cuTensorMapEncodeTiled, got through
+//   cudaGetDriverEntryPoint (no -lcuda: the C interface stays), and passed
+//   as __grid_constant__ parameters.
+//   - nop, nopF32: the CTA fills one box of shared memory with 1.0 once;
+//     one thread then issues the step's stores of that box, commits them as
+//     one bulk group and waits for their reads of shared memory
+//     (wait_group.read) before the CTA exits.
+//   - copy: one thread drives a ring of NST = 3 boxes: TMA loads of x's
+//     rows 0..22 (an mbarrier with expect-tx a stage) run NST - 1 boxes
+//     ahead of the TMA stores that write each box back out, and a stage is
+//     loaded again once the store that read it is done reading
+//     (wait_group.read 1).  nop and copy then differ by the input's bytes.
+//   - nopblk: a step's output is one contiguous region, written by 1-D
+//     bulk stores (cp.async.bulk) of one 16 KB tile of 1.0.
+//   One CTA per step stays, so that the (g, u) sweep still tells a fixed
+//   cost per step from a cost per byte.
 // - matmul / matblk: the step is cut into sub-tiles of one batch row and
 //   UT = 64 times.  Each sub-tile's rows the dots read (26 for matmul, 27
 //   for matblk) x 32 channels are staged in shared memory
@@ -48,10 +68,20 @@
 //   slots, sum in registers to output row r - 1.  matblk's zero rows
 //   24..31 are stored with the sub-tile.
 //
+// STEPCOST_OLDER, a build of its own: nop, nopF32, nopblk and copy run the
+// kernels the TMA ones replaced, which the default build is timed against.
+// A warp takes (channel, batch row) planes of the step and moves each row
+// of u times in 16-byte vectors, lanes on neighbouring vectors; copy issues
+// eight rows' loads before their stores.  matmul and matblk are the same in
+// both builds.
+//
 // Geometry: B % g == 0, T % u == 0, u % 8 == 0 (rows start on 16-byte
-// boundaries).  A sub-tile's ragged tail (u % 64) is masked by whole 8-time
-// groups, which u % 8 == 0 makes exact.
+// boundaries; with T a multiple of u every global stride of the tensor maps
+// is then a multiple of 16 bytes, and so are a box's rows, as TMA needs).
+// A sub-tile's ragged tail (u % 64) is masked by whole 8-time groups, which
+// u % 8 == 0 makes exact.
 
+#include <cuda.h>           // CUtensorMap and its enums: types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +96,6 @@ constexpr int F = 23;            // rows of the (32, B, 23, T) outputs
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int VEC = 8;           // bf16 in a 16-byte vector
-constexpr int RU = 8;            // rows a copy lane loads before storing
 
 constexpr int UT = 8 * WARPS;    // times per staged sub-tile: 8 a warp
 constexpr int KSTEPS = 6;        // K = 96: 3 taps x 2 halves of 16 channels
@@ -118,6 +147,10 @@ __device__ __forceinline__ long long x_row(int c, int gi, int r, int B,
          (long long)blockIdx.y * u;
 }
 
+#ifdef STEPCOST_OLDER
+// ------------------------------ the kernels the TMA ones replaced
+constexpr int RU = 8;            // rows a copy lane loads before storing
+
 // nop, nopF32, nopblk: 1.0 (0x3F80) into every element of the step's output
 __global__ void __launch_bounds__(THREADS)
 fill_kernel(bf16* __restrict__ out, int B, int T, int g, int u, int rows,
@@ -164,6 +197,7 @@ copy_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int B, int T,
     }
   }
 }
+#endif  // STEPCOST_OLDER
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -355,12 +389,232 @@ gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+#ifndef STEPCOST_OLDER
+// ------------------------------------------------- the TMA stores (default)
+constexpr int TMA_THREADS = 128;
+constexpr int BOX_MAX = 16384;   // bytes of one box, and of nopblk's tile
+constexpr int NST = 3;           // copy's ring of boxes
+constexpr int SMEM_ALIGN = 128;  // TMA's shared-memory alignment
+
+// The first 128-byte boundary of the dynamic shared memory.
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  return raw + ((SMEM_ALIGN - (smem_u32(raw) & (SMEM_ALIGN - 1))) &
+                (SMEM_ALIGN - 1));
+}
+
+// `bytes` (a multiple of 16) of 1.0 from `tile`, then the fence that makes
+// the generic proxy's stores visible to TMA's reads; all threads.
+__device__ __forceinline__ void fill_ones(unsigned char* tile, int bytes) {
+  const uint4 ones = make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u,
+                                0x3F803F80u);
+  for (int i = threadIdx.x; i < bytes / 16; i += TMA_THREADS)
+    reinterpret_cast<uint4*>(tile)[i] = ones;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int t, int r, int b,
+                                          int c) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(t), "r"(r),
+        "r"(b), "r"(c)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(const CUtensorMap* map,
+                                         uint32_t dst, uint32_t bar, int t,
+                                         int r, int b, int c) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(t),
+        "r"(r), "r"(b), "r"(c)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// nop, nopF32: the step's boxes of `om` (the output's map, (T, rows, B, 32)
+// innermost first) stored from one box of 1.0
+__global__ void __launch_bounds__(TMA_THREADS)
+fill_box_kernel(const __grid_constant__ CUtensorMap om, int g, int u, int ub,
+                int cb, int box_bytes) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tile = smem_base(smem_raw);
+  fill_ones(tile, box_bytes);
+  if (threadIdx.x != 0) return;
+  const uint32_t src = smem_u32(tile);
+  const int b0 = blockIdx.x * g, t0 = blockIdx.y * u;
+  for (int c = 0; c < C; c += cb)
+    for (int gi = 0; gi < g; ++gi)
+      for (int t = 0; t < u; t += ub)
+        tma_store(&om, src, t0 + t, 0, b0 + gi, c);
+  bulk_commit();
+  bulk_wait_read<0>();   // the tile stays until TMA has read it
+}
+
+// nopblk: the step's contiguous region (32 g 32 u values) by 1-D bulk
+// stores of one BOX_MAX tile of 1.0
+__global__ void __launch_bounds__(TMA_THREADS)
+fill_bulk_kernel(bf16* __restrict__ out, int g, int u) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tile = smem_base(smem_raw);
+  fill_ones(tile, BOX_MAX);
+  if (threadIdx.x != 0) return;
+  const uint32_t src = smem_u32(tile);
+  const long long step = (long long)blockIdx.x * gridDim.y + blockIdx.y;
+  const long long bytes = 2LL * C * g * ROWS * u;      // a multiple of 16
+  unsigned char* dst = reinterpret_cast<unsigned char*>(out) + step * bytes;
+  for (long long off = 0; off < bytes; off += BOX_MAX) {
+    const int n = (int)(bytes - off < BOX_MAX ? bytes - off : BOX_MAX);
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
+                 "%2;\n" ::"l"(dst + off), "r"(src), "r"(n)
+                 : "memory");
+  }
+  bulk_commit();
+  bulk_wait_read<0>();
+}
+
+// copy: the step's boxes of x's rows 0..22 (`xm`, (T, 32, B, 32)) loaded
+// into a ring of NST stages and stored through `om` ((T, 23, B, 32)), both
+// by one thread; a box is (ub, 23, 1, cb), so a stage is laid out alike for
+// the load and the store.  Box i is (channels i / (g nbox) cb, batch row
+// (i / nbox) % g, times (i % nbox) ub) of the step.
+__global__ void __launch_bounds__(TMA_THREADS)
+copy_box_kernel(const __grid_constant__ CUtensorMap xm,
+                const __grid_constant__ CUtensorMap om, int g, int u, int ub,
+                int cb, int box_bytes) {
+  extern __shared__ unsigned char smem_raw[];
+  if (threadIdx.x != 0) return;
+  unsigned char* ring = smem_base(smem_raw);
+  const int stride = (box_bytes + SMEM_ALIGN - 1) / SMEM_ALIGN * SMEM_ALIGN;
+  const uint32_t st0 = smem_u32(ring), bar0 = st0 + NST * stride;
+  for (int s = 0; s < NST; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8 * s)
+                 : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+
+  const int nbox = u / ub, n = (C / cb) * g * nbox;
+  const int b0 = blockIdx.x * g, t0 = blockIdx.y * u;
+  auto load = [&](int i) {
+    const int s = i % NST;
+    const uint32_t bar = bar0 + 8 * s;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(box_bytes) : "memory");
+    tma_load(&xm, st0 + s * stride, bar, t0 + (i % nbox) * ub, 0,
+             b0 + (i / nbox) % g, (i / (g * nbox)) * cb);
+  };
+  for (int i = 0; i < NST && i < n; ++i) load(i);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % NST;
+    mbar_wait(bar0 + 8 * s, (i / NST) & 1);
+    tma_store(&om, st0 + s * stride, t0 + (i % nbox) * ub, 0,
+              b0 + (i / nbox) % g, (i / (g * nbox)) * cb);
+    bulk_commit();
+    // the stage box i - 1 was stored from takes box i - 1 + NST, once that
+    // store has read it (box i's store may still be reading)
+    if (i >= 1 && i - 1 + NST < n) {
+      bulk_wait_read<1>();
+      load(i - 1 + NST);
+    }
+  }
+  bulk_wait_read<0>();
+}
+#endif  // STEPCOST_OLDER
+
+#ifndef STEPCOST_OLDER
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query; null where it is missing.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A box of (ub times, rows, 1 batch row, cb channels) for a step of u
+// times (the header says how ub and cb are chosen); bytes is its size.
+struct Box {
+  int ub, cb, bytes;
+};
+
+Box box_of(int u, int rows) {
+  int nbox = (u + 255) / 256;
+  while (u % nbox || (u / nbox) % VEC) ++nbox;   // ends at ub = 8
+  const int ub = u / nbox;
+  int cb = C;
+  while (cb > 1 && 2 * ub * rows * cb > BOX_MAX) cb /= 2;
+  return {ub, cb, 2 * ub * rows * cb};
+}
+
+// The tensor map of a bf16 (32, B, rows, T) array at `base`, innermost
+// first (T, rows, B, 32), in boxes of (ub, box_rows, 1, cb).
+bool encode(CUtensorMap* map, const void* base, int B, int T, int rows,
+            int box_rows, const Box& bx) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)T, (cuuint64_t)rows, (cuuint64_t)B,
+                              (cuuint64_t)C};
+  const cuuint64_t strides[3] = {2ull * T, 2ull * T * rows,
+                                 2ull * T * rows * B};   // bytes, dims 1..3
+  const cuuint32_t box[4] = {(cuuint32_t)bx.ub, (cuuint32_t)box_rows, 1u,
+                             (cuuint32_t)bx.cb};
+  const cuuint32_t estride[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+#endif  // STEPCOST_OLDER
+
 }  // namespace
 
 // x (32, B, 32, T) and w (96, 64) bf16 on the device, 16-byte aligned; out
-// of the mode's shape (the header).  B % g == 0, T % u == 0, u % 8 == 0.
-// mode: 0 nop, 1 nopF32, 2 nopblk, 3 copy, 4 matmul, 5 matblk.  Returns the
-// launch's cudaError_t (0 on success).
+// of the mode's shape (the header), 16-byte aligned.  B % g == 0,
+// T % u == 0, u % 8 == 0.  mode: 0 nop, 1 nopF32, 2 nopblk, 3 copy,
+// 4 matmul, 5 matblk.  Returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue also where a tensor map cannot be encoded).
 extern "C" int aasist_stepcost(const void* x, const void* w, void* out,
                                int mode, int B, int T, int g, int u,
                                void* stream) {
@@ -376,6 +630,7 @@ extern "C" int aasist_stepcost(const void* x, const void* w, void* out,
   bf16* op = static_cast<bf16*>(out);
   cudaError_t e = cudaSuccess;
   switch (mode) {
+#ifdef STEPCOST_OLDER
     case NOP:
       fill_kernel<<<grid, THREADS, 0, s>>>(op, B, T, g, u, F, 0);
       break;
@@ -388,6 +643,39 @@ extern "C" int aasist_stepcost(const void* x, const void* w, void* out,
     case COPY:
       copy_kernel<<<grid, THREADS, 0, s>>>(xp, op, B, T, g, u);
       break;
+#else
+    case NOP:
+    case NOPF32: {
+      const int rows = mode == NOP ? F : ROWS;
+      const Box bx = box_of(u, rows);
+      CUtensorMap om;
+      if (!encode(&om, out, B, T, rows, rows, bx))
+        return (int)cudaErrorInvalidValue;
+      fill_box_kernel<<<grid, TMA_THREADS, bx.bytes + SMEM_ALIGN, s>>>(
+          om, g, u, bx.ub, bx.cb, bx.bytes);
+      break;
+    }
+    case NOPBLK:
+      fill_bulk_kernel<<<grid, TMA_THREADS, BOX_MAX + SMEM_ALIGN, s>>>(op, g,
+                                                                      u);
+      break;
+    case COPY: {
+      const Box bx = box_of(u, F);
+      CUtensorMap xm, om;
+      if (!encode(&xm, x, B, T, ROWS, F, bx) ||
+          !encode(&om, out, B, T, F, F, bx))
+        return (int)cudaErrorInvalidValue;
+      const int smem = NST * ((bx.bytes + SMEM_ALIGN - 1) / SMEM_ALIGN *
+                              SMEM_ALIGN) + NST * 8 + SMEM_ALIGN;
+      if ((e = cudaFuncSetAttribute(
+               copy_box_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               smem)) != cudaSuccess)
+        return (int)e;
+      copy_box_kernel<<<grid, TMA_THREADS, smem, s>>>(xm, om, g, u, bx.ub,
+                                                      bx.cb, bx.bytes);
+      break;
+    }
+#endif
     case MATMUL:
     case MATBLK: {
       auto kernel = mode == MATMUL ? gemm_kernel<false> : gemm_kernel<true>;

@@ -103,8 +103,14 @@ def block0_pipe_reference(z: torch.Tensor, block: torch.nn.Module
 
 
 def _launch(name: str, z: torch.Tensor, block: torch.nn.Module,
-            defines: Optional[Mapping[str, object]] = None) -> torch.Tensor:
+            defines: Optional[Mapping[str, object]] = None,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Check a CUDA call of ``csrc/block0_pipe.cu``'s build ``defines`` and
+    launch it; ``bias`` replaces ``fold_block0``'s (the probes' builds read
+    (3, C): ``ops.block0_variants`` passes it)."""
     b, f_out, t_z, c, p = fs.check_frame(name, z, block, (torch.bfloat16,))
+    if bias is not None:
+        p = p._replace(bias=bias)
     t_out = t_z // 3
     n_tiles, n_bands, n_work = pipe_work(b, f_out, t_out)
     if n_work >= 2 ** 31:
@@ -156,18 +162,24 @@ def block0_pipe_cut(z: torch.Tensor, block: torch.nn.Module, cut: str
 TIMER_DEFINES = {"B0P_TIMER": None}
 
 
-def block0_timed(z: torch.Tensor, block: torch.nn.Module, kernel: str
+def block0_timed(z: torch.Tensor, block: torch.nn.Module, kernel: str,
+                 defines: Optional[Mapping[str, object]] = None,
+                 bias: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """One launch of the timer build of ``kernel`` ("pipe":
-    ``csrc/block0_pipe.cu``; "mma": ``csrc/fused_block0.cu``'s bf16 kernel)
-    on a bf16 CUDA frame: (its output, ``phase_ms`` of its side buffer).
-    The output is the plain build's.  Every launch adds one to
-    ``block0_timed.launches``."""
+    ``csrc/block0_pipe.cu``, with the further ``defines`` and ``bias`` of a
+    probe build if given; "mma": ``csrc/fused_block0.cu``'s bf16 kernel) on
+    a bf16 CUDA frame: (its output, ``phase_ms`` of its side buffer).  The
+    output is that of the build without the timer.  Every launch adds one
+    to ``block0_timed.launches``."""
     from aasist_tpu_torch.ops import _build
     if kernel == "pipe":
-        out = _launch("block0_timed", z, block, TIMER_DEFINES)
-        read = _build.load("block0_pipe", TIMER_DEFINES).lib \
-            .aasist_block0_pipe_timer
+        both = {**TIMER_DEFINES, **(defines or {})}
+        out = _launch("block0_timed", z, block, both, bias)
+        read = _build.load("block0_pipe", both).lib.aasist_block0_pipe_timer
+    elif defines or bias is not None:
+        raise ValueError("block0_timed: only the pipe kernel's timer takes "
+                         "a probe build")
     elif kernel == "mma":
         out = fs.launch_block0("block0_timed", z, block, TIMER_DEFINES,
                                dtypes=(torch.bfloat16,))

@@ -1,5 +1,5 @@
-"""Compile-time variants of the bf16 block-0 kernel (``csrc/fused_block0.cu``,
-``block0_tc_kernel``), each a function with a plain PyTorch version.
+"""Compile-time variants of the bf16 block-0 kernels, each a function with a
+plain PyTorch version.
 
 Counterparts of the kernels of three TPU probes of block 0:
 
@@ -11,6 +11,16 @@ Counterparts of the kernels of three TPU probes of block 0:
         cumulative stages, every stage writing a defined output;
     fused_block0_epi(z, block, variant)
         tools/probe_b0_epi.py:run -- where conv1's epilogue rounds to bf16.
+
+The constructs and the cast ladder are builds of ``csrc/block0_pipe.cu``,
+the warp-specialised kernel of the bf16 stack path (``ops.block0_pipe``):
+their output is that kernel's, (B, C, F, T_z // 3) stored channels last.
+``fused_block0_constructs_older`` and ``fused_block0_epi_older`` take the
+same arguments and launch the same switches on the older kernel,
+``csrc/fused_block0.cu``'s ``block0_tc_kernel`` (NCHW), which the new builds
+are timed against; the stages and the cuts are builds of that older kernel
+still.  ``constructs_build``, ``epi_build`` and ``stage_build`` name the
+(source, definitions) each variant launches.
 
 All take the zero-bordered frame (B, F + 2, T_z + 2) that
 ``ops.fused_stack.fused_frontend_padded`` writes and ``fold_block0``'s
@@ -64,7 +74,7 @@ the downsample are still computed), ``only_loop`` all four (the persistent
 loop, its barriers and the weight loads).
 
 The kernels are bfloat16 only: the variants are cut points and epilogues of
-the tensor-core kernel.  The f32 kernel runs conv2 on the CUDA cores with
+the tensor-core kernels.  The f32 kernel runs conv2 on the CUDA cores with
 another thread map, has no bf16 epilogue, and a read-modify-write tile does
 not fit in shared memory beside its f32 y1 tile.  A float32 CUDA tensor
 raises ``TypeError``.  CPU tensors of either type take the plain versions
@@ -79,8 +89,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from aasist_tpu_torch.ops import block0_pipe as bp
 from aasist_tpu_torch.ops import fused_stack as fs
 
+PIPE_SOURCE = "block0_pipe"       # the constructs' and the ladder's builds
+OLDER_SOURCE = "fused_block0"     # the stages', the cuts', the _older ones
 EPI_VARIANTS = ("base", "vA", "vB", "vD", "vF")
 STAGES = ("dma", "fill", "conv1", "epi", "conv2", "full")
 CUTS = {"no_load": 1, "no_conv1": 2, "no_mma": 4, "no_epi": 8,
@@ -120,6 +133,28 @@ def stage_defines(stage: str) -> Optional[Dict[str, object]]:
 def cut_defines(cut: str) -> Dict[str, object]:
     """The preprocessor definitions of a build with one phase removed."""
     return {"B0_CUT": CUTS[cut]}
+
+
+Build = Tuple[str, Optional[Dict[str, object]]]
+
+
+def constructs_build(bf16epi: bool, rmw: bool, b2slice: bool,
+                     older: bool = False) -> Build:
+    """(source, definitions) that ``fused_block0_constructs`` (``older``:
+    ``fused_block0_constructs_older``) launches for a construct set."""
+    return (OLDER_SOURCE if older else PIPE_SOURCE,
+            constructs_defines(bf16epi, rmw, b2slice))
+
+
+def epi_build(variant: str, older: bool = False) -> Build:
+    """(source, definitions) that ``fused_block0_epi`` (``older``:
+    ``fused_block0_epi_older``) launches for a cast-ladder variant."""
+    return OLDER_SOURCE if older else PIPE_SOURCE, epi_defines(variant)
+
+
+def stage_build(stage: str) -> Build:
+    """(source, definitions) that ``fused_block0_stage`` launches."""
+    return OLDER_SOURCE, stage_defines(stage)
 
 
 # ------------------------------------------------------------ plain versions
@@ -273,13 +308,22 @@ def _check(block: torch.nn.Module, name: str, choice: str, choices) -> None:
         raise ValueError(f"{name}: {choice!r} is not one of {choices}")
 
 
-def _launch(name: str, z: torch.Tensor, block: torch.nn.Module,
-           defines: Optional[Dict[str, object]]) -> torch.Tensor:
-    """Launch a variant build on a CUDA frame.  Variant builds read the bias
-    as (3, C): conv2's plus the downsample's, the downsample's, conv2's."""
+def variant_bias(block: torch.nn.Module) -> torch.Tensor:
+    """The (3, C) bias passed to every variant build: conv2's plus the
+    downsample's, the downsample's, conv2's (the builds without a bf16
+    epilogue read the first row only)."""
     b2, bd = _biases(block)
+    return torch.stack([b2 + bd, bd, b2]).contiguous()
+
+
+def _launch(name: str, z: torch.Tensor, block: torch.nn.Module,
+            build: Build) -> torch.Tensor:
+    """Launch a variant build on a CUDA frame."""
+    source, defines = build
+    if source == PIPE_SOURCE:
+        return bp._launch(name, z, block, defines, bias=variant_bias(block))
     return fs.launch_block0(name, z, block, defines=defines,
-                            bias=torch.stack([b2 + bd, bd, b2]).contiguous(),
+                            bias=variant_bias(block),
                             dtypes=(torch.bfloat16,))
 
 
@@ -288,15 +332,32 @@ def fused_block0_constructs(z: torch.Tensor, block: torch.nn.Module,
                             b2slice: bool = False) -> torch.Tensor:
     """Block 0 (eval) on the zero-bordered frame, (B, F + 2, T_z + 2) ->
     (B, C, F, T_z // 3), with the chosen constructs switched on (the
-    module's header describes them).  bfloat16 on CUDA.  Every launch adds
-    one to ``fused_block0_constructs.launches``."""
+    module's header describes them), on ``csrc/block0_pipe.cu``: channels
+    last.  bfloat16 on CUDA.  Every launch adds one to
+    ``fused_block0_constructs.launches``."""
     fs._check_block0(block, "fused_block0_constructs")
     if z.device.type == "cpu":
         return fused_block0_constructs_reference(z, block, bf16epi, rmw,
                                                  b2slice)
     out = _launch("fused_block0_constructs", z, block,
-                 constructs_defines(bf16epi, rmw, b2slice))
+                  constructs_build(bf16epi, rmw, b2slice))
     fused_block0_constructs.launches += 1
+    return out
+
+
+def fused_block0_constructs_older(z: torch.Tensor, block: torch.nn.Module,
+                                  bf16epi: bool = False, rmw: bool = False,
+                                  b2slice: bool = False) -> torch.Tensor:
+    """``fused_block0_constructs`` on the older kernel
+    (``csrc/fused_block0.cu``, NCHW).  Every launch adds one to
+    ``fused_block0_constructs_older.launches``."""
+    fs._check_block0(block, "fused_block0_constructs_older")
+    if z.device.type == "cpu":
+        return fused_block0_constructs_reference(z, block, bf16epi, rmw,
+                                                 b2slice)
+    out = _launch("fused_block0_constructs_older", z, block,
+                  constructs_build(bf16epi, rmw, b2slice, older=True))
+    fused_block0_constructs_older.launches += 1
     return out
 
 
@@ -309,7 +370,7 @@ def fused_block0_stage(z: torch.Tensor, block: torch.nn.Module, stage: str
     _check(block, "fused_block0_stage", stage, STAGES)
     if z.device.type == "cpu":
         return fused_block0_stage_reference(z, block, stage)
-    out = _launch("fused_block0_stage", z, block, stage_defines(stage))
+    out = _launch("fused_block0_stage", z, block, stage_build(stage))
     fused_block0_stage.launches += 1
     return out
 
@@ -317,13 +378,27 @@ def fused_block0_stage(z: torch.Tensor, block: torch.nn.Module, stage: str
 def fused_block0_epi(z: torch.Tensor, block: torch.nn.Module, variant: str
                      ) -> torch.Tensor:
     """Block 0 with conv1's epilogue rounding to bf16 where ``variant`` (one
-    of ``EPI_VARIANTS``) says.  bfloat16 on CUDA.  Every launch adds one to
+    of ``EPI_VARIANTS``) says, on ``csrc/block0_pipe.cu``: channels last.
+    bfloat16 on CUDA.  Every launch adds one to
     ``fused_block0_epi.launches``."""
     _check(block, "fused_block0_epi", variant, EPI_VARIANTS)
     if z.device.type == "cpu":
         return fused_block0_epi_reference(z, block, variant)
-    out = _launch("fused_block0_epi", z, block, epi_defines(variant))
+    out = _launch("fused_block0_epi", z, block, epi_build(variant))
     fused_block0_epi.launches += 1
+    return out
+
+
+def fused_block0_epi_older(z: torch.Tensor, block: torch.nn.Module,
+                           variant: str) -> torch.Tensor:
+    """``fused_block0_epi`` on the older kernel (``csrc/fused_block0.cu``,
+    NCHW).  Every launch adds one to ``fused_block0_epi_older.launches``."""
+    _check(block, "fused_block0_epi_older", variant, EPI_VARIANTS)
+    if z.device.type == "cpu":
+        return fused_block0_epi_reference(z, block, variant)
+    out = _launch("fused_block0_epi_older", z, block,
+                  epi_build(variant, older=True))
+    fused_block0_epi_older.launches += 1
     return out
 
 
@@ -334,12 +409,15 @@ def fused_block0_cut(z: torch.Tensor, block: torch.nn.Module, cut: str
     bfloat16 on CUDA only.  Every launch adds one to
     ``fused_block0_cut.launches``."""
     _check(block, "fused_block0_cut", cut, tuple(CUTS))
-    out = _launch("fused_block0_cut", z, block, cut_defines(cut))
+    out = _launch("fused_block0_cut", z, block,
+                  (OLDER_SOURCE, cut_defines(cut)))
     fused_block0_cut.launches += 1
     return out
 
 
 fused_block0_constructs.launches = 0
+fused_block0_constructs_older.launches = 0
 fused_block0_cut.launches = 0
 fused_block0_stage.launches = 0
 fused_block0_epi.launches = 0
+fused_block0_epi_older.launches = 0

@@ -17,11 +17,20 @@ with the probe's output layouts letter for letter:
                                        (B/g, T/u, 32, g, 32, u)
 
     stepcost(mode, x, w, g, u, out=None)
+    stepcost_older(mode, x, w, g, u, out=None)
+
+``stepcost`` stores the nop modes' and copy's outputs with TMA (the source's
+header says how); ``stepcost_older`` launches the ``STEPCOST_OLDER`` build,
+whose nop modes and copy are the kernels those replaced, and which the TMA
+build is timed against (matmul and matblk are one kernel in both).  TMA
+needs x and out 16-byte aligned, every global stride a multiple of 16 bytes
+(T % 8 == 0) and a box's rows too (u % 8 == 0): the wrappers raise
+``ValueError`` on anything else before any launch.
 
 The plain version, ``stepcost_reference``, needs no g or u but for the
 step-blocked layouts.  ``out``, when given, is written in place (a check can
 fill it with NaN first, so that an element the kernel misses shows).  The
-wrapper launches the kernel for CUDA tensors and raises on anything it does
+wrappers launch their kernel for CUDA tensors and raise on anything it does
 not take; CPU tensors take the plain version.
 """
 
@@ -37,6 +46,8 @@ CHANNELS = 32          # C_IN = C_OUT
 ROWS = 32              # rows of x and of the padded layouts
 F = 23                 # rows of the (32, B, 23, T) outputs
 K, M = 3 * CHANNELS, 2 * CHANNELS
+TMA_MODES = MODES[:4]  # the modes whose kernels the two builds differ in
+OLDER_DEFINES = {"STEPCOST_OLDER": None}
 
 
 def out_shape(mode: str, b: int, t: int, g: int, u: int
@@ -123,6 +134,43 @@ def _check(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}")
 
 
+def _launch(name: str, defines, mode: str, x: torch.Tensor,
+            w: torch.Tensor, g: int, u: int,
+            out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check a CUDA call of ``csrc/stepcost.cu``'s build ``defines`` and
+    launch it; ``name`` heads the messages."""
+    _check(x, w, out)
+    b, t = x.shape[1], x.shape[3]
+    _check_geometry(b, t, g, u)
+    shape = out_shape(mode, b, t, g, u)
+    if out is not None and tuple(out.shape) != shape:
+        raise ValueError(f"{name}: out must be {shape}, got "
+                         f"{tuple(out.shape)}")
+    if (2 * t) % 16:
+        raise ValueError(f"{name}: T = {t} makes a row stride of {2 * t} "
+                         "bytes, no multiple of 16 (TMA)")
+    if u % 8:
+        raise ValueError(f"{name}: u = {u} is no multiple of 8")
+    if t // u > 65535:
+        raise ValueError(f"{name}: {t // u} steps along T exceed the "
+                         "grid's 65535")
+    from aasist_tpu_torch.ops import _build
+    fn = _build.load("stepcost", defines).lib.aasist_stepcost
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 MODES.index(mode), b, t, g, u,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t "
+                           f"{err})")
+    return out
+
+
 def stepcost(mode: str, x: torch.Tensor, w: torch.Tensor, g: int, u: int,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``mode``'s function of x (32, B, 32, T) and w (96, 64), bf16, over
@@ -133,34 +181,25 @@ def stepcost(mode: str, x: torch.Tensor, w: torch.Tensor, g: int, u: int,
     if x.device.type == "cpu":
         ref = stepcost_reference(mode, x, w, g, u)
         return ref if out is None else out.copy_(ref)
-    _check(x, w, out)
-    b, t = x.shape[1], x.shape[3]
-    _check_geometry(b, t, g, u)
-    shape = out_shape(mode, b, t, g, u)
-    if out is not None and tuple(out.shape) != shape:
-        raise ValueError(f"stepcost: out must be {shape}, got "
-                         f"{tuple(out.shape)}")
-    if u % 8:
-        raise ValueError(f"stepcost: u = {u} is no multiple of 8")
-    if t // u > 65535:
-        raise ValueError(f"stepcost: {t // u} steps along T exceed the "
-                         "grid's 65535")
-    if out is None:
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    from aasist_tpu_torch.ops import _build
-    fn = _build.load("stepcost").lib.aasist_stepcost
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 MODES.index(mode), b, t, g, u,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"stepcost: CUDA launch failed (cudaError_t "
-                           f"{err})")
+    out = _launch("stepcost", None, mode, x, w, g, u, out)
     stepcost.launches += 1
     return out
 
 
+def stepcost_older(mode: str, x: torch.Tensor, w: torch.Tensor, g: int,
+                   u: int, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """``stepcost`` through the ``STEPCOST_OLDER`` build (the nop modes and
+    copy on the kernels the TMA ones replaced); the same arguments, guards
+    and result.  Every launch adds one to ``stepcost_older.launches``."""
+    _check_mode(mode)
+    if x.device.type == "cpu":
+        ref = stepcost_reference(mode, x, w, g, u)
+        return ref if out is None else out.copy_(ref)
+    out = _launch("stepcost_older", OLDER_DEFINES, mode, x, w, g, u, out)
+    stepcost_older.launches += 1
+    return out
+
+
 stepcost.launches = 0
+stepcost_older.launches = 0

@@ -14,15 +14,19 @@ JAX probe's seven (g, u) pairs, whose 448 to 28 steps fill at most a few
 waves of the card's SMs, and two finer ones, (4, 256) and (1, 256), with
 several CTAs to an SM.
 
-First every mode is checked against its plain version at every geometry
-(``tools/_common.py:stepcost_readings``: the output filled with NaN before
-the launch, exact for the constant and copy modes, one bf16 ulp for the
-dots), and at the first geometry each mode's planted fault must fail the
-gate; a failure ends the run with an error.  Then one line per geometry and
-mode: ms over two runs, the CTA and SM counts, the bound
-(``_common.stepcost_bound``) and, for the dots, TF/s on the FLOPs their
-function needs (``_common.stepcost_flops``); then one stock PyTorch call per
-mode, timed the same way.
+The nop modes and copy store through TMA (``ops.stepcost.stepcost``); the
+kernels they replaced, the ``STEPCOST_OLDER`` build
+(``ops.stepcost.stepcost_older``), run beside them as "<mode> older".
+
+First every mode of both builds is checked against its plain version at
+every geometry (``tools/_common.py:stepcost_readings``: the output filled
+with NaN before the launch, exact for the constant and copy modes, one bf16
+ulp for the dots), and at the first geometry each mode's planted fault must
+fail the gate; a failure ends the run with an error.  Then one line per
+geometry and mode, both builds timed in the same turns: ms over two runs,
+the CTA and SM counts, the bound (``_common.stepcost_bound``) and, for the
+dots, TF/s on the FLOPs their function needs (``_common.stepcost_flops``);
+then one stock PyTorch call per mode, timed the same way.
 """
 
 from __future__ import annotations
@@ -52,25 +56,28 @@ def inputs(batch: int, t_total: int, seed: int = 0):
     return x, w
 
 
-def check(mode: str, x, w, g: int, u: int, fault: bool, plain=None):
+def check(mode: str, x, w, g: int, u: int, fault: bool, plain=None,
+          fn=None):
     """(text, failures, max |kernel - plain|) of ``mode`` at steps (g, u)
-    against its plain version (given, or computed), with the planted fault
-    if ``fault``."""
+    through ``fn`` (``ops.stepcost.stepcost`` or ``stepcost_older``; default
+    the first) against its plain version (given, or computed), with the
+    planted fault if ``fault``."""
     import torch
 
     from aasist_tpu_torch.ops import stepcost as sc
 
+    fn = fn or sc.stepcost
     b, t = x.shape[1], x.shape[3]
     out = torch.full(sc.out_shape(mode, b, t, g, u), float("nan"),
                      dtype=torch.bfloat16, device=x.device)
-    got = sc.stepcost(mode, x, w, g, u, out=out)
+    got = fn(mode, x, w, g, u, out=out)
     torch.cuda.synchronize()
     if plain is None:
         plain = sc.stepcost_reference(mode, x, w, g, u)
     bad = None
     if fault:
         bad = _common.stepcost_bad(
-            mode, x, w, lambda xx, ww: sc.stepcost(mode, xx, ww, g, u))
+            mode, x, w, lambda xx, ww: fn(mode, xx, ww, g, u))
     text, fails = _common.stepcost_readings(mode, got, plain, bad)
     return text, fails, _common.max_abs_err(got, plain)
 
@@ -117,9 +124,13 @@ def main(argv=None) -> int:
     from aasist_tpu_torch.ops import stepcost as sc
 
     card = _common.card_line()
-    lib = _build.load("stepcost")
+    lib, older = _build.load_all([("stepcost", None),
+                                  ("stepcost", sc.OLDER_DEFINES)])
     print(f"built stepcost.cu: nvcc {lib.build_seconds:.1f} s; gemm "
-          f"{_common.kernel_resources(lib.log, 'gemm_kernel')}", flush=True)
+          f"{_common.kernel_resources(lib.log, 'gemm_kernel')}; TMA copy "
+          f"{_common.kernel_resources(lib.log, 'copy_box_kernel')}; older "
+          f"build {older.build_seconds:.1f} s", flush=True)
+    builds = {"": sc.stepcost, " older": sc.stepcost_older}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     b, t = BATCH, T_TOTAL
     x, w = inputs(b, t)
@@ -129,10 +140,13 @@ def main(argv=None) -> int:
             plain = (None if mode in ("nopblk", "matblk")
                      else sc.stepcost_reference(mode, x, w, 1, 8))
             for i, (g, u) in enumerate(GEOMETRIES):
-                text, f, _ = check(mode, x, w, g, u, i == 0, plain)
-                print(f"check {mode:6s} G={g:3d} u={u:5d}: {text}",
-                      flush=True)
-                fails += f
+                for tag, fn in builds.items():
+                    if tag and mode not in sc.TMA_MODES:
+                        continue            # the dots: one kernel in both
+                    text, f, _ = check(mode, x, w, g, u, i == 0, plain, fn)
+                    print(f"check {mode + tag:12s} G={g:3d} u={u:5d}: "
+                          f"{text}", flush=True)
+                    fails += f
             del plain
         if fails:
             raise SystemExit("probe_stepcost: " + "; ".join(fails))
@@ -140,14 +154,16 @@ def main(argv=None) -> int:
         for g, u in GEOMETRIES:
             steps = (b // g) * (t // u)
             runs = _common.two_runs(
-                {m: (lambda m=m: sc.stepcost(m, x, w, g, u))
-                 for m in sc.MODES}, args.iters)
-            for mode, ms in runs.items():
+                {m + tag: (lambda m=m, fn=fn: fn(m, x, w, g, u))
+                 for m in sc.MODES for tag, fn in builds.items()
+                 if not tag or m in sc.TMA_MODES}, args.iters)
+            for name, ms in runs.items():
+                mode = name.split()[0]
                 mean = sum(ms) / 2
                 flops = _common.stepcost_flops(mode, b, t)
                 rate = f", {flops / mean / 1e9:6.1f} TF/s" if flops else ""
                 print(f"B={b} G={g:3d} u={u:5d} CTAs {steps:5d} on {sms} SMs"
-                      f" {mode:6s}: {mean:8.4f} ms (runs "
+                      f" {name:12s}: {mean:8.4f} ms (runs "
                       f"{', '.join(f'{v:.4f}' for v in ms)}), bound "
                       "{:.4f} ms ({}){}  [{}]".format(*bounds[mode], rate,
                                                       card), flush=True)

@@ -6,8 +6,10 @@
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
   2. build the eleven CUDA sources from csrc/, the eighteen variants of
-     fused_block0.cu (its timer build among them) and the four of
-     block0_pipe.cu (timer, three timing cuts) with nvcc, all at once;
+     fused_block0.cu (its timer build among them), the twelve of
+     block0_pipe.cu (timer, three timing cuts, the seven builds of the
+     construct sets and the cast ladder, the bf16 epilogue's timer) and
+     the older build of stepcost.cu with nvcc, all at once;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
      L = 16001 (the sinc frontend on a freq-masked bank there): the
@@ -26,12 +28,15 @@ Phases, each of which raises (exit code 1) on failure:
      then the tensor-core
      frontend in its two probe layouts (bfloat16 only, also at the probes'
      B = 256) and the frontend + block-0 head; then every variant of the
-     block-0 kernel (construct sets, stages, cast ladder; bfloat16) and the
-     tail kernels (three pools, SELU + layout change; both types, one size
-     with ragged tiles); then the step-cost kernel in its six modes at
-     B = 128, T = 7168 and at a ragged geometry, and the chained-dot kernel
-     at the twelve dot shapes at a visible eps, each with a planted fault
-     its gate must tell;
+     block-0 kernels (bfloat16: the construct sets and the cast ladder on
+     block0_pipe.cu and on the older kernel, each pair timed in turns; the
+     stages) and the tail kernels (three pools, SELU + layout change; both
+     types, one size with ragged tiles); then the step-cost kernel in its
+     six modes at B = 128, T = 7168 and at a ragged geometry (its TMA
+     build, and the older build's four modes that TMA took over, timed in
+     turns with the stock call), and the chained-dot kernel at the twelve
+     dot shapes at a visible eps, each with a planted fault its gate must
+     tell;
   4. the main paths, each with every kernel wrapper's launch count reset
      just before and read just after, and checked: Scorer.from_config(
      "configs/AASIST.conf") with the pretrained weights (bf16, the
@@ -2013,7 +2018,7 @@ def main() -> int:
         B0_BF16_EPILOGUES, HEAD_Y1_OWN_X0_TOL, b0_fault, b0_readings,
         block0_bound, bytes_bound, card_line, cuda_ms, f64_err,
         frontend_bound, head_bound, head_y1_excess, least_bound,
-        max_abs_err, stage_bound, stepcost_bound)
+        max_abs_err, stage_bound, stepcost_bound, two_runs)
     from aasist_tpu_torch.weights import load_npz
 
     # ---------------------------------------------------------------- 1
@@ -2037,18 +2042,30 @@ def main() -> int:
               + [bv.cut_defines(c) for c in bv.CUTS]):
         variants[json.dumps(d, sort_keys=True)] = d
     variants[json.dumps(bp.TIMER_DEFINES)] = bp.TIMER_DEFINES
+    # the builds of block0_pipe.cu: the timer, the cuts, the probes'
+    # construct sets and cast ladder, the timer of the timed sets
+    pipe = [bp.TIMER_DEFINES] + [{"B0P_CUT": c}
+                                 for c in bp.PIPE_CUTS.values()]
+    for _, d in ([bv.constructs_build(*f) for f in construct_sets.values()]
+                 + [bv.epi_build(v) for v in bv.EPI_VARIANTS]):
+        if d and d not in pipe:
+            pipe.append(d)
+    for n in probe_b0_constructs.TIMED_SETS:
+        d = bv.constructs_defines(*construct_sets[n])
+        if d:
+            pipe.append({**bp.TIMER_DEFINES, **d})
     entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
                                    "frontend_f32", "frontend_ffma",
                                    "block0_f32",
                                    "frontend_head", "tail_constructs",
                                    "stepcost", "mma_shapes", "block0_pipe")]
-    entries += [("block0_pipe", bp.TIMER_DEFINES)]
-    entries += [("block0_pipe", {"B0P_CUT": c}) for c in bp.PIPE_CUTS.values()]
+    entries += [("stepcost", sc.OLDER_DEFINES)]
+    entries += [("block0_pipe", d) for d in pipe]
     entries += [("fused_block0", d) for d in variants.values()]
     libs = _build.load_all(entries)
     print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
-          f"fused_block0.cu, {2 + len(bp.PIPE_CUTS)} of block0_pipe.cu): "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"fused_block0.cu, {1 + len(pipe)} of block0_pipe.cu, 2 of "
+          f"stepcost.cu): {time.perf_counter() - t0:.1f} s")
     for (_, defines), lib in zip(entries, libs):
         print(f"[build] {lib.path.name} {defines or ''}: nvcc "
               f"{lib.build_seconds:.1f} s")
@@ -2551,18 +2568,23 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the block-0 variants (bf16 only): every construct set, stage and
-    # cast-ladder variant against its plain version
+    # cast-ladder variant against its plain version, the constructs and the
+    # ladder on block0_pipe.cu and on the older kernel, each pair timed in
+    # turns
     families = {
         "fused_block0_constructs": (
-            bv.fused_block0_constructs,
+            bv.fused_block0_constructs, bv.fused_block0_constructs_older,
             bv.fused_block0_constructs_reference, construct_sets),
         "fused_block0_stage": (
-            bv.fused_block0_stage, bv.fused_block0_stage_reference,
+            bv.fused_block0_stage, None, bv.fused_block0_stage_reference,
             {st: (st,) for st in bv.STAGES}),
         "fused_block0_epi": (
-            bv.fused_block0_epi, bv.fused_block0_epi_reference,
+            bv.fused_block0_epi, bv.fused_block0_epi_older,
+            bv.fused_block0_epi_reference,
             {v: (v,) for v in bv.EPI_VARIANTS})}
-    variant_results = {name: {} for name in families}
+    variant_results = {name: {} for fam, (_, older, _, _) in families.items()
+                       for name in ((fam, fam + "_older") if older
+                                    else (fam,))}
     for b, length in [(128, 64600), (3, 16001)]:
         tag = f"bfloat16 B={b} L={length}"
         x = (torch.randn((b, length), generator=gen, device="cuda")
@@ -2574,28 +2596,37 @@ def main() -> int:
             z = fused_frontend_padded(x, bank, bn_p, bn_s)
             shape = (b, 32, 23, (length - 128) // 9)
             plain_base = bv.fused_block0_epi_reference(z, block, "base")
-            for fam, (fn, ref_fn, cases_) in families.items():
+            for fam, (fn, older, ref_fn, cases_) in families.items():
+                builds = {fam: fn}
+                if older:
+                    builds[fam + "_older"] = older
                 for vname, vargs in cases_.items():
-                    got = fn(z, block, *vargs)
-                    torch.cuda.synchronize()
                     plain = ref_fn(z, block, *vargs)
-                    check(tuple(got.shape) == shape
-                          and got.dtype == torch.bfloat16
-                          and bool(torch.isfinite(got).all()),
-                          f"{fam} {vname}: output {tuple(got.shape)} "
-                          f"{got.dtype}, or not finite")
-                    err = (got.float() - plain.float()).abs().max().item()
-                    fault = b0_fault(vname, z, block)
-                    bad = fault and fn(*fault, *vargs)
-                    text, fails = b0_readings(
-                        vname, got, plain, bad,
-                        plain_base if vname in B0_BF16_EPILOGUES else None)
-                    print(f"[kernel] {fam} {vname} {tag}: max|kernel-plain| "
-                          f"= {err:.3e}, {text}")
-                    check(not fails, f"{fam}, {tag}: " + "; ".join(fails))
-                    del got, bad, fault
+                    errs = {}
+                    for name, bfn in builds.items():
+                        got = bfn(z, block, *vargs)
+                        torch.cuda.synchronize()
+                        check(tuple(got.shape) == shape
+                              and got.dtype == torch.bfloat16
+                              and bool(torch.isfinite(got).all()),
+                              f"{name} {vname}: output {tuple(got.shape)} "
+                              f"{got.dtype}, or not finite")
+                        errs[name] = (got.float() - plain.float()).abs() \
+                            .max().item()
+                        fault = b0_fault(vname, z, block)
+                        bad = fault and bfn(*fault, *vargs)
+                        text, fails = b0_readings(
+                            vname, got, plain, bad,
+                            plain_base if vname in B0_BF16_EPILOGUES
+                            else None)
+                        print(f"[kernel] {name} {vname} {tag}: max|kernel-"
+                              f"plain| = {errs[name]:.3e}, {text}")
+                        check(not fails, f"{name}, {tag}: " + "; ".join(fails))
+                        del got, bad, fault
                     if b == 128:
-                        ms = cuda_ms(lambda: fn(z, block, *vargs), 5)
+                        runs = two_runs(
+                            {name: (lambda f=bfn: f(z, block, *vargs))
+                             for name, bfn in builds.items()}, 5)
                         plain_ms = cuda_ms(lambda: ref_fn(z, block, *vargs),
                                            1, warmup=0)
                         bound, by = (
@@ -2603,13 +2634,21 @@ def main() -> int:
                             if fam == "fused_block0_stage"
                             else block0_bound(b, length, 32, "bfloat16"))
                         top = plain.float().abs().max().item()
-                        variant_results[fam][vname] = dict(
-                            max_abs_err=err, max_rel_err=err / top, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                            library_ms=None)
+                        ms = {name: sum(r) / 2 for name, r in runs.items()}
+                        for name in builds:
+                            variant_results[name][vname] = dict(
+                                max_abs_err=errs[name],
+                                max_rel_err=errs[name] / top, ms=ms[name],
+                                runs=runs[name], plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=by, library_ms=None)
+                        if older:
+                            variant_results[fam][vname]["older_ms"] = \
+                                ms[fam + "_older"]
                         print(f"[kernel] {fam} {vname} {tag}: kernel "
-                              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                              f"{bound:.4f} ms ({by})  [{card}]")
+                              + ", ".join(f"{name} {v:.4f} ms"
+                                          for name, v in ms.items())
+                              + f" (in turns), plain {plain_ms:.4f} ms, "
+                              f"bound {bound:.4f} ms ({by})  [{card}]")
                     del plain
             del plain_base
         del x, z, block
@@ -2705,9 +2744,13 @@ def main() -> int:
 
     # the step-cost kernel: every mode at block 0's grid geometry and at a
     # ragged one (g = 3, u = 104: a full 64-time sub-tile, then a 40-time
-    # tail in which warps 5-7 hold no times), the output filled with NaN
-    # first; gates and planted faults in tools/_common.py:stepcost_readings
-    step_results = {}
+    # tail in which warps 5-7 hold no times; one TMA box of 104 times), the
+    # output filled with NaN first, the TMA build and for its four modes
+    # the older one; gates and planted faults in
+    # tools/_common.py:stepcost_readings.  At block 0's geometry the builds
+    # and the stock call are timed in turns.
+    step_results = {"stepcost": {}, "stepcost_older": {}}
+    step_fns = {"stepcost": sc.stepcost, "stepcost_older": sc.stepcost_older}
     for b, t, g, u in [(probe_stepcost.BATCH, probe_stepcost.T_TOTAL, 8, 256),
                        (6, 312, 3, 104)]:
         tag = f"B={b} T={t} (g, u) = ({g}, {u})"
@@ -2717,24 +2760,39 @@ def main() -> int:
         with torch.inference_mode():
             for mode in sc.MODES:
                 plain = sc.stepcost_reference(mode, x, w, g, u)
-                text, fails, err = probe_stepcost.check(mode, x, w, g, u,
-                                                        True, plain)
-                print(f"[kernel] stepcost {mode} {tag}: {text}")
-                check(not fails, f"stepcost, {tag}: " + "; ".join(fails))
+                builds = {name: fn for name, fn in step_fns.items()
+                          if name == "stepcost" or mode in sc.TMA_MODES}
+                errs = {}
+                for name, fn in builds.items():
+                    text, fails, errs[name] = probe_stepcost.check(
+                        mode, x, w, g, u, True, plain, fn)
+                    print(f"[kernel] {name} {mode} {tag}: {text}")
+                    check(not fails, f"{name}, {tag}: " + "; ".join(fails))
                 if not full:
                     continue
-                ms = cuda_ms(lambda: sc.stepcost(mode, x, w, g, u), 10)
+                runs = two_runs(
+                    {**{name: (lambda fn=fn: fn(mode, x, w, g, u))
+                        for name, fn in builds.items()},
+                     "stock": lib_fns[mode]}, 10)
+                ms = {name: sum(r) / 2 for name, r in runs.items()}
                 plain_ms = cuda_ms(
                     lambda: sc.stepcost_reference(mode, x, w, g, u), 3)
-                lib_ms = cuda_ms(lib_fns[mode], 10)
                 bound, by = stepcost_bound(mode, b, t)
-                step_results[mode] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                    g=g, u=u)
-                print(f"[kernel] stepcost {mode} {tag}: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, stock call {lib_ms:.4f} ms, "
-                      f"bound {bound:.4f} ms ({by})  [{card}]")
+                for name in builds:
+                    step_results[name][mode] = dict(
+                        max_abs_err=errs[name], ms=ms[name], runs=runs[name],
+                        plain_ms=plain_ms, library_ms=ms["stock"],
+                        library_runs=runs["stock"], bound_ms=bound,
+                        bound_by=by, g=g, u=u)
+                if "stepcost_older" in builds:
+                    step_results["stepcost"][mode]["older_ms"] = \
+                        ms["stepcost_older"]
+                print(f"[kernel] stepcost {mode} {tag}: "
+                      + ", ".join(f"{name} {v:.4f} ms (runs "
+                                  f"{runs[name][0]:.4f}, {runs[name][1]:.4f})"
+                                  for name, v in ms.items())
+                      + f" in turns, plain {plain_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by})  [{card}]")
                 if mode == "matmul":
                     conv = lib_fns[mode]().permute(1, 0, 2, 3)
                     rel = (max_abs_err(conv, plain)
@@ -3035,13 +3093,17 @@ def main() -> int:
               "fused_frontend_dot_bm": fused_frontend_dot_bm,
               "fused_frontend_head": fused_frontend_head,
               "fused_block0_constructs": bv.fused_block0_constructs,
+              "fused_block0_constructs_older":
+                  bv.fused_block0_constructs_older,
               "fused_block0_stage": bv.fused_block0_stage,
               "fused_block0_cut": bv.fused_block0_cut,
               "fused_block0_epi": bv.fused_block0_epi,
+              "fused_block0_epi_older": bv.fused_block0_epi_older,
               "pool3_time": tc.pool3_time,
               "pool3_time_major": tc.pool3_time_major,
               "selu_to_nchw": tc.selu_to_nchw,
               "stepcost": sc.stepcost,
+              "stepcost_older": sc.stepcost_older,
               "mma_chain": mm.mma_chain}
     # each probe with the kernels it must launch; every count is set to 0
     # just before a probe and read just after it, and a kernel's launches
@@ -3050,14 +3112,17 @@ def main() -> int:
     probe_launches = dict.fromkeys(probed, 0)
     for probe, own in ((probe_frontend_variants, dots), (probe_fe_fix, dots),
                        (probe_feb0_ablate, ("fused_frontend_head",)),
-                       (probe_b0_constructs, ("fused_block0_constructs",)),
+                       (probe_b0_constructs,
+                        ("fused_block0_constructs",
+                         "fused_block0_constructs_older")),
                        (probe_b0_ablate, ("fused_block0_stage",
                                           "fused_block0_cut")),
-                       (probe_b0_epi, ("fused_block0_epi",)),
+                       (probe_b0_epi, ("fused_block0_epi",
+                                       "fused_block0_epi_older")),
                        (probe_tail_constructs, ("pool3_time",
                                                 "pool3_time_major",
                                                 "selu_to_nchw")),
-                       (probe_stepcost, ("stepcost",)),
+                       (probe_stepcost, ("stepcost", "stepcost_older")),
                        (probe_mxu_shapes, ("mma_chain",))):
         pname = probe.__name__.rsplit(".", 1)[-1]
         print(f"[probe] {pname} --iters 3")
@@ -3239,15 +3304,22 @@ def main() -> int:
         **head_results["bfloat16"], "dtype": "bfloat16",
         "shape": [128, 64600], "float32": head_results["float32"]})
     # the block-0 variants: one entry per wrapper, its numbers those of the
-    # variant named in "variant", every variant's under "variants"
+    # variant named in "variant", every variant's under "variants"; the
+    # constructs and the ladder on block0_pipe.cu, their older builds and
+    # the stages on fused_block0.cu
     for fam, head, where in (
             ("fused_block0_constructs", "all",
              "tools/probe_b0_constructs.py:29"),
+            ("fused_block0_constructs_older", "all",
+             "tools/probe_b0_constructs.py:29"),
             ("fused_block0_stage", "conv2", "tools/probe_b0_ablate.py:32"),
-            ("fused_block0_epi", "vA", "tools/probe_b0_epi.py:41")):
+            ("fused_block0_epi", "vA", "tools/probe_b0_epi.py:41"),
+            ("fused_block0_epi_older", "vA", "tools/probe_b0_epi.py:41")):
+        src = "block0_pipe" if fam in ("fused_block0_constructs",
+                                       "fused_block0_epi") else "fused_block0"
         kernels.append({
             "name": fam, "route": "cuda",
-            "source": "aasist_tpu_torch/csrc/fused_block0.cu",
+            "source": f"aasist_tpu_torch/csrc/{src}.cu",
             "replaces": where, "launches": probe_launches[fam],
             **variant_results[fam][head], "variant": head,
             "dtype": "bfloat16", "shape": [128, 64600],
@@ -3288,8 +3360,10 @@ def main() -> int:
     # the probes' kernels: one entry each, the numbers of the variant named
     # in "variant" (mma_chain's a dot), every variant's under "variants"
     for name, head, src, where, variants in (
-            ("stepcost", "matmul", "stepcost", "tools/probe_stepcost.py:53",
-             step_results),
+            ("stepcost", "nop", "stepcost", "tools/probe_stepcost.py:53",
+             step_results["stepcost"]),
+            ("stepcost_older", "nop", "stepcost",
+             "tools/probe_stepcost.py:53", step_results["stepcost_older"]),
             ("mma_chain", "k128_m128", "mma_shapes",
              "tools/probe_mxu_shapes.py:50", mma_results)):
         kernels.append({

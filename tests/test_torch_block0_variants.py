@@ -273,15 +273,19 @@ CALLS = {
     "fused_block0_constructs": (True, True, True),
     "fused_block0_stage": ("epi",),
     "fused_block0_epi": ("vF",),
+    "fused_block0_constructs_older": (True, True, True),
+    "fused_block0_epi_older": ("vF",),
 }
 
 
 @pytest.mark.parametrize("name", list(CALLS))
 def test_cpu_tensors_take_the_plain_versions(name):
-    """A CPU tensor is no kernel launch and equals the plain version; a
-    device that is neither CPU nor CUDA raises."""
+    """A CPU tensor is no kernel launch and equals the plain version (the
+    older kernel's builds share the new ones'); a device that is neither
+    CPU nor CUDA raises."""
     _, _, frame, block = _both(70, 2, 100, torch.float32)
-    fn, ref_fn = getattr(bv, name), getattr(bv, name + "_reference")
+    fn = getattr(bv, name)
+    ref_fn = getattr(bv, name.replace("_older", "") + "_reference")
     before = fn.launches
     with torch.inference_mode():
         torch.testing.assert_close(fn(frame, block, *CALLS[name]),
@@ -371,16 +375,80 @@ def test_variants_need_block0(name):
 
 
 def test_defines_name_thirteen_builds():
-    """The default build serves ``none``, ``base`` and ``full``; every other
-    variant has definitions of its own, and ``vA`` shares ``bf16epi``'s."""
-    sets = [bv.constructs_defines(*f) for f in CONSTRUCTS.values()]
-    sets += [bv.stage_defines(s) for s in bv.STAGES]
-    sets += [bv.epi_defines(v) for v in bv.EPI_VARIANTS]
+    """The constructs and the cast ladder are builds of
+    ``csrc/block0_pipe.cu``, their ``_older`` wrappers the same definitions
+    on ``csrc/fused_block0.cu``, and the stages builds of that older source.
+    The default build serves ``none``, ``base`` and ``full``; every other
+    variant has definitions of its own, and ``vA`` shares ``bf16epi``'s:
+    thirteen builds of the older source (as before the constructs and the
+    ladder moved), eight of the new one."""
+    new = [bv.constructs_build(*f) for f in CONSTRUCTS.values()]
+    new += [bv.epi_build(v) for v in bv.EPI_VARIANTS]
+    older = [bv.constructs_build(*f, older=True) for f in CONSTRUCTS.values()]
+    older += [bv.stage_build(s) for s in bv.STAGES]
+    older += [bv.epi_build(v, older=True) for v in bv.EPI_VARIANTS]
+    assert {src for src, _ in new} == {"block0_pipe"}
+    assert {src for src, _ in older} == {"fused_block0"}
+    assert [d for _, d in new] == [d for _, d in older[:5] + older[11:]]
     assert bv.constructs_defines(False, False, False) is None
     assert bv.stage_defines("full") is None and bv.epi_defines("base") is None
     assert bv.epi_defines("vA") == bv.constructs_defines(True, False, False)
-    keys = {tuple(sorted((d or {}).items(), key=str)) for d in sets}
-    assert len(keys) == 13
+    assert bv.constructs_build(True, True, True)[1] == {
+        "B0_EPI": 1, "B0_RMW": None, "B0_B2SLICE": None}
+    assert [bv.epi_defines(v) for v in bv.EPI_VARIANTS] == [
+        None, {"B0_EPI": 1}, {"B0_EPI": 2}, {"B0_EPI": 3}, {"B0_EPI": 4}]
+
+    def count(builds):
+        return len({(src, tuple(sorted((d or {}).items(), key=str)))
+                    for src, d in builds})
+    assert count(older) == 13 and count(new) == 8
+
+
+class _Built(Exception):
+    """Raised in place of the build: every check before it passed."""
+
+
+@pytest.mark.parametrize("name", [n for n in CALLS if "stage" not in n])
+def test_wrappers_launch_their_builds(monkeypatch, name):
+    """Each wrapper asks for the build ``constructs_build`` / ``epi_build``
+    names, with the (3, C) bias of ``variant_bias``, and counts nothing when
+    it stops there.  (``check_frame`` is stood in for: a frame on a card
+    cannot be made here.)"""
+    from aasist_tpu_torch.ops import _build
+    _, _, frame, block = _both(71, 1, 100, torch.bfloat16)
+    cases = CONSTRUCTS if "constructs" in name else {
+        v: (v,) for v in bv.EPI_VARIANTS}
+    seen = []
+
+    def check_frame(n, z, blk, dtypes):
+        assert dtypes == (torch.bfloat16,) and n == name
+        return (1, 23, 98, C, fs.fold_block0(blk))
+
+    def load(src, defines=None):
+        seen.append((src, defines))
+        raise _Built
+    monkeypatch.setattr(fs, "check_frame", check_frame)
+    monkeypatch.setattr(_build, "load", load)
+    fn = getattr(bv, name)
+    before = fn.launches
+    for args in cases.values():
+        with pytest.raises(_Built):
+            fn(_FakeCuda(frame), block, *args)
+    older = name.endswith("_older")
+    want = [bv.constructs_build(*a, older=older) if "constructs" in name
+            else bv.epi_build(*a, older=older) for a in cases.values()]
+    assert seen == want and fn.launches == before
+
+
+def test_variant_bias_rows():
+    """The variant builds' bias: conv2's plus the downsample's, the
+    downsample's, conv2's."""
+    _, _, _, block = _both(72, 1, 100, torch.float32)
+    b2, bd = block.conv2.bias.detach(), block.conv_downsample.bias.detach()
+    got = bv.variant_bias(block)
+    assert tuple(got.shape) == (3, C) and got.is_contiguous()
+    torch.testing.assert_close(got, torch.stack([b2 + bd, bd, b2]),
+                               rtol=0, atol=0)
 
 
 def test_cut_builds_are_timing_only():

@@ -98,6 +98,21 @@ def test_cpu_tensors_take_the_plain_version(mode):
     assert sc.stepcost.launches == before
 
 
+@pytest.mark.parametrize("mode", sc.MODES)
+def test_cpu_tensors_take_the_plain_version_older(mode):
+    """``stepcost_older`` on CPU tensors: no launch, the plain version, also
+    written into ``out``."""
+    x, w, _, _ = _inputs(3, 4, 64)
+    before = sc.stepcost_older.launches
+    want = sc.stepcost_reference(mode, x, w, 2, 32)
+    torch.testing.assert_close(sc.stepcost_older(mode, x, w, 2, 32), want,
+                               rtol=0, atol=0)
+    out = torch.full_like(want, float("nan"))
+    assert sc.stepcost_older(mode, x, w, 2, 32, out=out) is out
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert sc.stepcost_older.launches == before
+
+
 class _FakeCuda:
     """Stands in for a CUDA tensor in the guards, which read ``device``,
     ``dtype``, ``dim``, ``shape``, ``is_contiguous`` and ``data_ptr`` before
@@ -164,9 +179,86 @@ def test_guards_raise(what, kw, exc, match):
                     _FakeCuda(w), kw.get("g", 2), kw.get("u", 32), out=out)
 
 
+class _Built(Exception):
+    """Raised in place of the build: every guard before it passed."""
+
+
+@pytest.fixture
+def builds(monkeypatch):
+    """The (source, definitions) of every build a call asks for; the call
+    then stops, as if the build had raised."""
+    from aasist_tpu_torch.ops import _build
+    seen = []
+
+    def load(name, defines=None):
+        seen.append((name, defines))
+        raise _Built
+    monkeypatch.setattr(_build, "load", load)
+    return seen
+
+
+@pytest.mark.parametrize("mode", sc.MODES)
+def test_each_wrapper_launches_its_build(builds, mode):
+    """``stepcost`` builds ``csrc/stepcost.cu`` plain (the TMA stores) and
+    ``stepcost_older`` with ``STEPCOST_OLDER``, whose nop modes and copy are
+    the kernels the TMA ones replaced; neither counts a launch that did not
+    happen."""
+    x, w, _, _ = _inputs(9, 4, 64)
+    before = (sc.stepcost.launches, sc.stepcost_older.launches)
+    for fn in (sc.stepcost, sc.stepcost_older):
+        with pytest.raises(_Built):
+            fn(mode, _FakeCuda(x), _FakeCuda(w), 2, 32)
+    assert builds == [("stepcost", None),
+                      ("stepcost", {"STEPCOST_OLDER": None})]
+    assert (sc.stepcost.launches, sc.stepcost_older.launches) == before
+    assert sc.TMA_MODES == ("nop", "nopF32", "nopblk", "copy")
+
+
+@pytest.mark.parametrize("mode", sc.MODES)
+def test_ragged_geometry_passes_the_tma_guards(builds, mode):
+    """The card check's ragged geometry, (B, T, g, u) = (6, 312, 3, 104),
+    meets TMA's conditions (T = 312 makes 624-byte row strides, u = 104
+    208-byte box rows) and reaches the build in both wrappers."""
+    x, w, _, _ = _inputs(10, 6, 312)
+    for fn in (sc.stepcost, sc.stepcost_older):
+        with pytest.raises(_Built):
+            fn(mode, _FakeCuda(x), _FakeCuda(w), 3, 104)
+    assert len(builds) == 2
+
+
+TMA_GUARDS = [
+    ("T of 12: 24-byte row strides", dict(t=12, u=4), "no multiple of 16"),
+    ("u of 4", dict(t=64, u=4), "no multiple of 8"),
+    ("a misaligned x", dict(x_ptr=8), "16-byte aligned"),
+    ("a misaligned out", dict(out_ptr=8), "16-byte aligned"),
+]
+
+
+@pytest.mark.parametrize("fn", ["stepcost", "stepcost_older"])
+@pytest.mark.parametrize("what,kw,match", TMA_GUARDS,
+                         ids=[g[0] for g in TMA_GUARDS])
+def test_tma_guards_raise_before_any_launch(builds, fn, what, kw, match):
+    """What TMA does not take (a global stride or a box row that is no
+    multiple of 16 bytes, an address off a 16-byte boundary) raises
+    ``ValueError`` before the build is asked for and before any launch."""
+    t, u = kw.get("t", 64), kw.get("u", 32)
+    x = torch.zeros((32, 4, 32, t), dtype=torch.bfloat16)
+    w = torch.zeros((96, 64), dtype=torch.bfloat16)
+    out = None
+    if "out_ptr" in kw:
+        out = _FakeCuda(torch.zeros(sc.out_shape("nop", 4, t, 2, u),
+                                    dtype=torch.bfloat16), ptr=kw["out_ptr"])
+    wrapper = getattr(sc, fn)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=match):
+        wrapper("nop", _FakeCuda(x, ptr=kw.get("x_ptr")), _FakeCuda(w), 2, u,
+                out=out)
+    assert builds == [] and wrapper.launches == before
+
+
 def test_unknown_mode_raises():
     x, w, _, _ = _inputs(5, 2, 16)
-    for fn in (sc.stepcost, sc.stepcost_reference):
+    for fn in (sc.stepcost, sc.stepcost_older, sc.stepcost_reference):
         with pytest.raises(ValueError, match="not one of"):
             fn("nopbf16", x, w, 1, 8)
 
