@@ -77,15 +77,24 @@
 //   B0P_CUT=bits  timing only, the output is meaningless: 1 the producers
 //               compute no y1, 2 the consumers run no MMA loop.  3 leaves
 //               the skeleton: frame loads, hand-offs, downsample, store.
+//               4 the producers issue no frame tile (the ring and its
+//               offsets stay the zeros set at the start), 8 the consumers
+//               store nothing (the pool and the downsample still run, under
+//               a bound no column is below, which the compiler cannot see
+//               through).  tools/probe_b0_ablate.py's cuts (ops/
+//               block0_variants.py:cut_defines): no_load 4, no_conv1 1,
+//               no_mma 2, no_epi 8, only_loop 15.
 //
 // The block-0 probes' builds (ops/block0_variants.py states each one's
 // function).  They replace the TPU kernels tools/probe_b0_constructs.py:
-// _kernel (launched by its run) and tools/probe_b0_epi.py:_kernel (its
-// run), as csrc/fused_block0.cu's builds of the same names did on the
-// older kernel, which stay as the builds these are timed against.  Their
-// bound is block 0's (0.82 ms of tensor-core operations at B = 128); what
-// they measure is what each construct costs on this kernel, whose
-// producers and consumers overlap:
+// _kernel (launched by its run), tools/probe_b0_ablate.py:_kernel (its
+// run) and tools/probe_b0_epi.py:_kernel (its run), as
+// csrc/fused_block0.cu's builds of the same names did on the older
+// kernel, which stay as the builds these are timed against.  Their bound
+// is block 0's (0.82 ms of tensor-core operations at B = 128; a stage's
+// own, tools/_common.py:stage_bound); what they measure is what each
+// construct, stage or phase costs on this kernel, whose producers and
+// consumers overlap:
 //
 //   B0_EPI=1..4  where the producers' conv1 epilogue rounds to bf16:
 //                1 (vA, the bf16epi construct) conv1's f32 sum is rounded,
@@ -121,10 +130,39 @@
 //                default reads bs[] once a channel a row, a read the
 //                compiler may keep in a register across rows.
 //
-// The bf16 epilogues read `bias` as (3, C): conv2's bias plus the
-// downsample's, the downsample's, conv2's; every other build reads the
-// first row (ops/block0_variants.py passes all three to every probe
-// build).
+//   B0_STAGE=0..4  the item's work ends after the stage (dma, fill,
+//                conv1, epi, conv2 of tools/probe_b0_ablate.py:_kernel,
+//                whose functions ops/block0_variants.py states) and what it
+//                computed is reduced into the channels-last output tile, so
+//                that nothing is dead code.  Each stage keeps this kernel's
+//                roles and hand-offs and cuts what comes after it:
+//                0 (dma) the producers run the cp.async frame ring and the
+//                  hand-offs only; the consumers store channel 0 as one
+//                  frame value a pooled column, the other channels zero;
+//                1 (fill) the producers sum the 18 frame values conv1 and
+//                  the downsample take for a pooled column (two rows, nine
+//                  columns) into y1 buffer [row][column][0], rounded once;
+//                  the consumers store it as channel 0;
+//                2 (conv1) the producers run conv1's and the downsample's
+//                  FMAs with their shifts and no SELU at the three times of
+//                  a pooled column one to the left (unmasked), summed and
+//                  rounded once into y1 buffer [row][column][channel]; the
+//                  consumers store it as it is;
+//                3 (epi) the producers build y1 as the whole kernel does
+//                  (SELU, the halo mask, the stores into the y1 buffer); the
+//                  consumers read its five terms for a pooled column (y1 at
+//                  two rows and three times, the downsample with its bias
+//                  rounded) and store their f32 sum;
+//                4 (conv2) the whole kernel with the A fragments of the two
+//                  off-split (pool phase, tap) pairs zeroed: "dense only".
+//                Stages 0-2 read one pooled column to the left of the whole
+//                kernel's: their frame tile starts four columns earlier
+//                (ZOFF), its rows 60 elements apart instead of 56.
+//
+// The bf16 epilogues and the stages dma .. epi read `bias` as (3, C):
+// conv2's bias plus the downsample's, the downsample's, conv2's; every
+// other build reads the first row (ops/block0_variants.py passes all three
+// to every probe build).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,13 +176,18 @@
 #ifndef B0P_CUT
 #define B0P_CUT 0
 #endif
+#ifndef B0_STAGE
+#define B0_STAGE 5
+#endif
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int CUT = B0P_CUT;
-static_assert(CUT >= 0 && CUT < 4, "unknown cut");
+static_assert(CUT >= 0 && CUT < 16, "unknown cut");
+constexpr int STAGE = B0_STAGE;   // 5: the whole block
+static_assert(STAGE >= 0 && STAGE <= 5, "unknown stage");
 constexpr int EPI = B0_EPI;       // conv1's epilogue (0: f32, rounded once)
 constexpr bool BF16_EPI = EPI == 1 || EPI == 4;
 static_assert(EPI >= 0 && EPI <= 4, "unknown epilogue");
@@ -158,20 +201,24 @@ constexpr bool B2SLICE = true;
 #else
 constexpr bool B2SLICE = false;
 #endif
-constexpr int NBIAS = BF16_EPI ? 3 : 1;  // bias rows: sum, downsample's,
-                                         // conv2's
+static_assert(STAGE == 5 || (CUT == 0 && EPI == 0 && !RMW && !B2SLICE),
+              "a stage build takes no other switch");
+// bias rows: sum, downsample's, conv2's
+constexpr int NBIAS = (BF16_EPI || STAGE <= 3) ? 3 : 1;
 
 constexpr int C = 32;             // block-0 channels (filts[1][1])
 constexpr int TO = 16;            // pooled columns per item
 constexpr int TP = 3 * TO;        // conv2 positions per item
 constexpr int YW = TP + 2;        // y1 columns per item (time halo 1 + 1)
-constexpr int ZW = TP + 4;        // frame columns per item
+constexpr int ZOFF = STAGE < 3 ? 4 : 0;   // extra frame columns on the left
+constexpr int ZW = TP + 4 + ZOFF; // frame columns per item
 constexpr int RB = 23;            // output rows per band
 constexpr int YR = RB + 1;        // y1 rows per band
 constexpr int ZR = RB + 2;        // frame rows per band
 constexpr int CIS = 40;           // bf16 pitch of a y1 column / a tap's co row
-constexpr int ZP = 56;            // bf16 pitch of a frame-tile row: ZW + 3
-                                  // alignment slack, in 8-byte chunks
+constexpr int ZP = (ZW + 6) / 4 * 4;  // bf16 pitch of a frame-tile row: ZW
+                                      // + 3 alignment slack, in 8-byte
+                                      // chunks (56; 60 with ZOFF)
 constexpr int NCH = ZP / 4;       // 8-byte chunks per frame-tile row
 constexpr int NSTAGE = 4;         // frame tiles in the ring
 constexpr int RUN = 25;           // y1 columns per conv1 run
@@ -341,14 +388,15 @@ __device__ __forceinline__ Item item(int work, int n_tiles, int n_bands,
 }
 
 // Frame tile of item `it` into stage `zt` (rows f0 .. f0 + rows + 1 of the
-// frame, columns 3 t0 - 1 .. 3 t0 + YW): row r's copy starts at the 8-byte
-// boundary at or before column 3 t0 - 1, that many elements earlier is
-// off[r]; zeros outside the frame.  Producer threads only.
+// frame, columns 3 t0 - 1 - ZOFF .. 3 t0 + YW): row r's copy starts at the
+// 8-byte boundary at or before column 3 t0 - 1 - ZOFF, that many elements
+// earlier is off[r]; zeros outside the frame.  Producer threads only.
 __device__ __forceinline__ void load_frame(bf16* zt, int* off,
                                            const bf16* __restrict__ z,
                                            const Item& it, int F, int T_z,
                                            int ptid) {
-  const int zcols = T_z + 2, c0 = 3 * it.t0 - 1;
+  if constexpr ((CUT & 4) != 0) return;   // no_load: the tiles stay zero
+  const int zcols = T_z + 2, c0 = 3 * it.t0 - 1 - ZOFF;
   const bf16* zb = z + (it.b * (F + 2) + it.f0) * (long long)zcols;
   const uint32_t base = smem_u32(zt);
   for (int i = ptid; i < (it.rows + 2) * NCH; i += PTHREADS) {
@@ -356,7 +404,7 @@ __device__ __forceinline__ void load_frame(bf16* zt, int* off,
     const bf16* row = zb + (long long)r * zcols;
     // element index of the row's first 8-byte boundary at or before c0
     const int mis = (int)(((reinterpret_cast<uintptr_t>(row) >> 1) +
-                           (uintptr_t)(c0 + 4)) & 3);
+                           (uintptr_t)(c0 + 8)) & 3);
     const int e0 = c0 - mis + 4 * q;           // first element of chunk q
     if (q == 0) off[r] = mis;
     const uint32_t dst = base + (r * ZP + 4 * q) * 2;
@@ -424,6 +472,121 @@ __device__ __forceinline__ void conv1_run(const float* z0, const float* z1,
   }
 }
 
+// The producers' sums of stages fill (STAGE 1, channel 0) and conv1
+// (STAGE 2, this thread's channels cp, cp + 1) for the item's output rows
+// and pooled columns, rounded once into y1 buffer [row][column][channel].
+// Frame-tile column c is frame column 3 t0 - 5 + c (ZOFF = 4): pooled
+// column t0 + d's operands start at column 3 d.  The arithmetic is
+// csrc/fused_block0.cu's stages', in the same order.
+__device__ __forceinline__ void stage_sums(const bf16* zt, const int* off,
+                                           bf16* y1, const float* wa,
+                                           const float* wb, float sa,
+                                           float sb, const float* wds,
+                                           const float* bs, int cp,
+                                           int group, int ptid, int rows) {
+  if constexpr (STAGE == 1) {
+    for (int i = ptid; i < rows * TO; i += PTHREADS) {
+      const int row = i / TO, d = i % TO;
+      const bf16* za = zt + row * ZP + off[row] + 3 * d;
+      const bf16* zc = zt + (row + 1) * ZP + off[row + 1] + 3 * d;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) v += bf(za[j]) + bf(zc[j]);
+      y1[(row * YW + d) * CIS] = __float2bfloat16(v);
+    }
+  } else if constexpr (STAGE == 2) {
+    // conv1 + shift and downsample + bias at times 3 (t' - 1) + q, q =
+    // 0..2, summed; the downsample's taps ride on conv1's second row
+    const float da[3] = {wds[cp * 3], wds[cp * 3 + 1], wds[cp * 3 + 2]};
+    const float db[3] = {wds[cp * 3 + 3], wds[cp * 3 + 4], wds[cp * 3 + 5]};
+    const float a0 = 3.f * (sa + bs[C + cp]), b0 = 3.f * (sb + bs[C + cp + 1]);
+    for (int i = group; i < rows * TO; i += PTHREADS / 16) {
+      const int row = i / TO, d = i % TO;
+      const bf16* za = zt + row * ZP + off[row] + 3 * d + 2;
+      const bf16* zc = zt + (row + 1) * ZP + off[row + 1] + 3 * d + 2;
+      float z0[5], z1[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        z0[k] = bf(za[k]);
+        z1[k] = bf(zc[k]);
+      }
+      float a = a0, b = b0;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          a = fmaf(wa[k], z0[q + k], fmaf(wa[3 + k] + da[k], z1[q + k], a));
+          b = fmaf(wb[k], z0[q + k], fmaf(wb[3 + k] + db[k], z1[q + k], b));
+        }
+      *reinterpret_cast<__nv_bfloat162*>(y1 + (row * YW + d) * CIS + cp) =
+          __floats2bfloat162_rn(a, b);
+    }
+  }
+}
+
+// Stages dma .. epi: the consumers' output row `row` of the item, pooled
+// columns t0 + g and t0 + g + 8, channels 8 q .. 8 q + 7 of lane (g, q),
+// stored channels last as the whole kernel stores (16 bytes a lane):
+// dma channel 0 from the frame tile; fill and conv1 what the producers
+// left in the y1 buffer; epi the five terms' f32 sum, y1 at times 3 t',
+// 3 t' - 1 (row, row + 1) and 3 t' + 3 (row + 1), y1 column j being time
+// 3 t0 - 1 + j, and the downsample with its bias at time 3 t', rounded to
+// bf16 first, as the plain version does.
+__device__ __forceinline__ void stage_row(const bf16* zt, const int* off,
+                                          const bf16* y1, const float* wds,
+                                          const float* bs,
+                                          bf16* __restrict__ out,
+                                          const Item& it, int row, int lane,
+                                          int F, int T_out) {
+  const int g = lane >> 2, q = lane & 3, f = it.f0 + row;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int d = g + 8 * u, t = it.t0 + d;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (STAGE == 0 || STAGE == 1) {
+      if (q == 0)
+        v.x = __bfloat16_as_ushort(STAGE == 0
+                                       ? zt[row * ZP + off[row] + 3 * d]
+                                       : y1[(row * YW + d) * CIS]);
+    } else if constexpr (STAGE == 2) {
+      v = *reinterpret_cast<const uint4*>(y1 + (row * YW + d) * CIS + 8 * q);
+    } else {
+      const bf16* y0 = y1 + (row * YW + 3 * d) * CIS + 8 * q;
+      const bf16* yb = y0 + YW * CIS;
+      const bf16* zr = zt + (row + 1) * ZP + off[row + 1] + 3 * d + 1;
+      const float z0 = bf(zr[0]), z1 = bf(zr[1]), z2 = bf(zr[2]);
+      uint4 w[4];
+      w[0] = *reinterpret_cast<const uint4*>(y0 + CIS);       // row, 3 t'
+      w[1] = *reinterpret_cast<const uint4*>(yb + CIS);       // row + 1, 3 t'
+      w[2] = *reinterpret_cast<const uint4*>(y0);             // row, 3 t' - 1
+      w[3] = *reinterpret_cast<const uint4*>(yb + 4 * CIS);   // row + 1, + 3
+      const bf16* e[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) e[k] = reinterpret_cast<const bf16*>(&w[k]);
+      uint32_t o[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        float s[2];
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+          const int ch = 2 * h + par, co = 8 * q + ch;
+          const float ds = fmaf(wds[co * 3], z0,
+                                fmaf(wds[co * 3 + 1], z1,
+                                     wds[co * 3 + 2] * z2)) + bs[C + co];
+          s[par] = bf(e[0][ch]) + bf(e[1][ch]) + bf(e[2][ch]) +
+                   bf(e[3][ch]) + bf(__float2bfloat16(ds));
+        }
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(s[0], s[1]);
+        o[h] = *reinterpret_cast<const uint32_t*>(&pr);
+      }
+      v = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    if (t < T_out)
+      *reinterpret_cast<uint4*>(
+          out + ((it.b * F + f) * (long long)T_out + t) * C + 8 * q) = v;
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
                    const float* __restrict__ sh1,
@@ -468,6 +631,11 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
   if constexpr ((CUT & 1) != 0)        // a cut phase leaves its tile unset
     for (int i = tid; i < 2 * Y1_SZ; i += THREADS)
       y1b[i] = __float2bfloat16(0.f);
+  if constexpr ((CUT & 4) != 0) {      // no frame tile is ever issued
+    for (int i = tid; i < NSTAGE * ZT_SZ; i += THREADS)
+      zts[i] = __float2bfloat16(0.f);
+    for (int i = tid; i < NSTAGE * ZR; i += THREADS) offs[i] = 0;
+  }
   __syncthreads();
 #ifdef B0P_TIMER
   t_prev = clk();
@@ -512,8 +680,12 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
       mark(7);
 
       // y1 buffer s, [r][col][ci] at y1 row f0 + r, time 3 t0 - 1 + col;
-      // zero outside times 0 .. T_z - 1
-      if constexpr (!(CUT & 1)) {
+      // zero outside times 0 .. T_z - 1 (stages fill and conv1: their sums
+      // at [row][pooled column][ci]; dma: nothing)
+      if constexpr (STAGE == 1 || STAGE == 2) {
+        stage_sums(zts + stage * ZT_SZ, offs + stage * ZR, y1b + s * Y1_SZ,
+                   wa, wb, sa, sb, wds, bs, cp, group, ptid, it.rows);
+      } else if constexpr (STAGE >= 3 && !(CUT & 1)) {
         const bf16* zt = zts + stage * ZT_SZ;
         const int* off = offs + stage * ZR;
         bf16* y1 = y1b + s * Y1_SZ;
@@ -577,6 +749,11 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
       const uint32_t a_buf = a_base + s * Y1_SZ * 2;
 
       for (int row = warp; row < it.rows; row += CWARPS) {
+        if constexpr (STAGE <= 3) {
+          stage_row(zt, off, y1b + s * Y1_SZ, wds, bs, out, it, row, lane, F,
+                    T_out);
+          continue;
+        }
         float acc[MT][4][4];
 #pragma unroll
         for (int m = 0; m < MT; ++m)
@@ -603,6 +780,15 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
                 ldmatrix_x4(a_buf + (((row + df) * YW + a_pos[m] + dt) * CIS +
                                      kh * 16) * 2,
                             a[0], a[1], a[2], a[3]);
+                if constexpr (STAGE == 4) {
+                  // dense only: a[0], a[2] are slot 2 m, a[1], a[3] slot
+                  // 2 m + 1, a slot's pool phase is slot % 3; phase 0
+                  // lacks the tap dt = 0 and phase 2 the tap dt = 2
+#pragma unroll
+                  for (int hh = 0; hh < 2; ++hh)
+                    if (dt != 1 && (2 * m + hh) % 3 == dt)
+                      a[hh] = a[hh + 2] = 0u;
+                }
 #pragma unroll
                 for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, b[n]);
               }
@@ -693,7 +879,7 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int t = it.t0 + g + 8 * u;
-          if (t < T_out)
+          if (t < ((CUT & 8) ? 0 : T_out))    // no_epi: a bound none is under
             *reinterpret_cast<uint4*>(
                 out + ((it.b * F + f) * (long long)T_out + t) * C + 8 * q) =
                 make_uint4(ov[u][0], ov[u][1], ov[u][2], ov[u][3]);
@@ -736,7 +922,7 @@ block0_pipe_kernel(const bf16* __restrict__ z, const float* __restrict__ w1,
 // times the bn2 scale, sh1 (C) the folded shift, w2 (C, 6, C) conv2 taps
 // [ci][df*3+dt][co], wd (C, 3) downsample taps, bias (C) conv2 bias +
 // downsample bias (ops/fused_stack.py:fold_block0), or (3, C) in the
-// bf16 epilogues' builds (the header).  channels must be 32;
+// bf16 epilogues' and the stages' builds (the header).  channels must be 32;
 // n_tiles = ceil(T_out / 16), n_bands = ceil(F / 23), n_work = B n_bands
 // n_tiles (ops/block0_pipe.py:pipe_work).  Returns the launch's cudaError_t
 // (0 on success).

@@ -12,15 +12,15 @@ Counterparts of the kernels of three TPU probes of block 0:
     fused_block0_epi(z, block, variant)
         tools/probe_b0_epi.py:run -- where conv1's epilogue rounds to bf16.
 
-The constructs and the cast ladder are builds of ``csrc/block0_pipe.cu``,
-the warp-specialised kernel of the bf16 stack path (``ops.block0_pipe``):
-their output is that kernel's, (B, C, F, T_z // 3) stored channels last.
-``fused_block0_constructs_older`` and ``fused_block0_epi_older`` take the
-same arguments and launch the same switches on the older kernel,
-``csrc/fused_block0.cu``'s ``block0_tc_kernel`` (NCHW), which the new builds
-are timed against; the stages and the cuts are builds of that older kernel
-still.  ``constructs_build``, ``epi_build`` and ``stage_build`` name the
-(source, definitions) each variant launches.
+All are builds of ``csrc/block0_pipe.cu``, the warp-specialised kernel of
+the bf16 stack path (``ops.block0_pipe``): their output is that kernel's,
+(B, C, F, T_z // 3) stored channels last.  ``fused_block0_constructs_older``,
+``fused_block0_stage_older``, ``fused_block0_epi_older`` and
+``fused_block0_cut_older`` take the same arguments and launch the same
+variants on the older kernel, ``csrc/fused_block0.cu``'s
+``block0_tc_kernel`` (NCHW), which the new builds are timed against.
+``constructs_build``, ``stage_build``, ``epi_build`` and ``cut_build`` name
+the (source, definitions) each variant launches.
 
 All take the zero-bordered frame (B, F + 2, T_z + 2) that
 ``ops.fused_stack.fused_frontend_padded`` writes and ``fold_block0``'s
@@ -68,10 +68,12 @@ is ``bf16epi``; ``vF`` is ``vA`` with SELU's exponential taken in f32.
 
 One phase removed, for timing only (``fused_block0_cut``; the output has
 block 0's shape and no defined values, so there is no plain version and a
-CPU tensor raises): ``no_load`` the frame-tile load, ``no_conv1`` conv1 +
-SELU, ``no_mma`` conv2's MMA loop, ``no_epi`` the output store (the pool and
-the downsample are still computed), ``only_loop`` all four (the persistent
-loop, its barriers and the weight loads).
+CPU tensor raises): ``no_load`` the frame-tile load (on ``block0_pipe.cu``
+the producers' issue of the next frame tile), ``no_conv1`` conv1 + SELU,
+``no_mma`` conv2's MMA loop, ``no_epi`` the output store (the pool and the
+downsample are still computed), ``only_loop`` all four (the persistent
+loop, its barriers and the weight loads).  The two sources number these
+bits differently (``CUT_BITS``).
 
 The kernels are bfloat16 only: the variants are cut points and epilogues of
 the tensor-core kernels.  The f32 kernel runs conv2 on the CUDA cores with
@@ -92,12 +94,18 @@ import torch.nn.functional as F
 from aasist_tpu_torch.ops import block0_pipe as bp
 from aasist_tpu_torch.ops import fused_stack as fs
 
-PIPE_SOURCE = "block0_pipe"       # the constructs' and the ladder's builds
-OLDER_SOURCE = "fused_block0"     # the stages', the cuts', the _older ones
+PIPE_SOURCE = "block0_pipe"       # every variant's build
+OLDER_SOURCE = "fused_block0"     # the _older wrappers' builds
 EPI_VARIANTS = ("base", "vA", "vB", "vD", "vF")
 STAGES = ("dma", "fill", "conv1", "epi", "conv2", "full")
-CUTS = {"no_load": 1, "no_conv1": 2, "no_mma": 4, "no_epi": 8,
-        "only_loop": 15}
+CUTS = ("no_load", "no_conv1", "no_mma", "no_epi", "only_loop")
+# each source's definition and bits of a cut (its header states them)
+CUT_BITS = {
+    PIPE_SOURCE: ("B0P_CUT", {"no_load": 4, "no_conv1": 1, "no_mma": 2,
+                              "no_epi": 8, "only_loop": 15}),
+    OLDER_SOURCE: ("B0_CUT", {"no_load": 1, "no_conv1": 2, "no_mma": 4,
+                              "no_epi": 8, "only_loop": 15}),
+}
 _EPI_CODE = {"base": 0, "vA": 1, "vB": 2, "vD": 3, "vF": 4}
 _BF16_EPI = ("vA", "vF")
 _SELU_L = 1.0507009873554805
@@ -127,12 +135,16 @@ def constructs_defines(bf16epi: bool, rmw: bool, b2slice: bool
 def stage_defines(stage: str) -> Optional[Dict[str, object]]:
     """The preprocessor definitions of a stage."""
     level = STAGES.index(stage)
-    return {"B0_STAGE": level} if level < len(STAGES) - 1 else None
+    if level == len(STAGES) - 1:
+        return None
+    return {"B0_STAGE": level}
 
 
-def cut_defines(cut: str) -> Dict[str, object]:
-    """The preprocessor definitions of a build with one phase removed."""
-    return {"B0_CUT": CUTS[cut]}
+def cut_defines(cut: str, older: bool = False) -> Dict[str, object]:
+    """The preprocessor definitions of a build with one phase removed
+    (``older``: on ``csrc/fused_block0.cu``)."""
+    name, bits = CUT_BITS[OLDER_SOURCE if older else PIPE_SOURCE]
+    return {name: bits[cut]}
 
 
 Build = Tuple[str, Optional[Dict[str, object]]]
@@ -152,9 +164,16 @@ def epi_build(variant: str, older: bool = False) -> Build:
     return OLDER_SOURCE if older else PIPE_SOURCE, epi_defines(variant)
 
 
-def stage_build(stage: str) -> Build:
-    """(source, definitions) that ``fused_block0_stage`` launches."""
-    return OLDER_SOURCE, stage_defines(stage)
+def stage_build(stage: str, older: bool = False) -> Build:
+    """(source, definitions) that ``fused_block0_stage`` (``older``:
+    ``fused_block0_stage_older``) launches for a stage."""
+    return OLDER_SOURCE if older else PIPE_SOURCE, stage_defines(stage)
+
+
+def cut_build(cut: str, older: bool = False) -> Build:
+    """(source, definitions) that ``fused_block0_cut`` (``older``:
+    ``fused_block0_cut_older``) launches for a cut."""
+    return OLDER_SOURCE if older else PIPE_SOURCE, cut_defines(cut, older)
 
 
 # ------------------------------------------------------------ plain versions
@@ -365,13 +384,26 @@ def fused_block0_stage(z: torch.Tensor, block: torch.nn.Module, stage: str
                        ) -> torch.Tensor:
     """Block 0 cut after ``stage`` (one of ``STAGES``), the work done so far
     reduced into a (B, C, F, T_z // 3) output (the module's header has each
-    stage's function).  bfloat16 on CUDA.  Every launch adds one to
-    ``fused_block0_stage.launches``."""
+    stage's function), on ``csrc/block0_pipe.cu``: channels last.  bfloat16
+    on CUDA.  Every launch adds one to ``fused_block0_stage.launches``."""
     _check(block, "fused_block0_stage", stage, STAGES)
     if z.device.type == "cpu":
         return fused_block0_stage_reference(z, block, stage)
     out = _launch("fused_block0_stage", z, block, stage_build(stage))
     fused_block0_stage.launches += 1
+    return out
+
+
+def fused_block0_stage_older(z: torch.Tensor, block: torch.nn.Module,
+                             stage: str) -> torch.Tensor:
+    """``fused_block0_stage`` on the older kernel (``csrc/fused_block0.cu``,
+    NCHW).  Every launch adds one to ``fused_block0_stage_older.launches``."""
+    _check(block, "fused_block0_stage_older", stage, STAGES)
+    if z.device.type == "cpu":
+        return fused_block0_stage_reference(z, block, stage)
+    out = _launch("fused_block0_stage_older", z, block,
+                  stage_build(stage, older=True))
+    fused_block0_stage_older.launches += 1
     return out
 
 
@@ -405,19 +437,31 @@ def fused_block0_epi_older(z: torch.Tensor, block: torch.nn.Module,
 def fused_block0_cut(z: torch.Tensor, block: torch.nn.Module, cut: str
                      ) -> torch.Tensor:
     """Launch block 0 with the phase ``cut`` (one of ``CUTS``) removed, to
-    time it: the (B, C, F, T_z // 3) result holds no defined values.
-    bfloat16 on CUDA only.  Every launch adds one to
-    ``fused_block0_cut.launches``."""
-    _check(block, "fused_block0_cut", cut, tuple(CUTS))
-    out = _launch("fused_block0_cut", z, block,
-                  (OLDER_SOURCE, cut_defines(cut)))
+    time it, on ``csrc/block0_pipe.cu``: the (B, C, F, T_z // 3) result
+    holds no defined values.  bfloat16 on CUDA only.  Every launch adds one
+    to ``fused_block0_cut.launches``."""
+    _check(block, "fused_block0_cut", cut, CUTS)
+    out = _launch("fused_block0_cut", z, block, cut_build(cut))
     fused_block0_cut.launches += 1
+    return out
+
+
+def fused_block0_cut_older(z: torch.Tensor, block: torch.nn.Module, cut: str
+                           ) -> torch.Tensor:
+    """``fused_block0_cut`` on the older kernel (``csrc/fused_block0.cu``).
+    Every launch adds one to ``fused_block0_cut_older.launches``."""
+    _check(block, "fused_block0_cut_older", cut, CUTS)
+    out = _launch("fused_block0_cut_older", z, block,
+                  cut_build(cut, older=True))
+    fused_block0_cut_older.launches += 1
     return out
 
 
 fused_block0_constructs.launches = 0
 fused_block0_constructs_older.launches = 0
 fused_block0_cut.launches = 0
+fused_block0_cut_older.launches = 0
 fused_block0_stage.launches = 0
+fused_block0_stage_older.launches = 0
 fused_block0_epi.launches = 0
 fused_block0_epi_older.launches = 0

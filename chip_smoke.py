@@ -5,11 +5,15 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the eleven CUDA sources from csrc/, the eighteen variants of
-     fused_block0.cu (its timer build among them), the twelve of
-     block0_pipe.cu (timer, three timing cuts, the seven builds of the
-     construct sets and the cast ladder, the bf16 epilogue's timer) and
-     the older build of stepcost.cu with nvcc, all at once;
+  2. build the twelve CUDA sources from csrc/, the nineteen builds of
+     fused_block0.cu (its timer build among them), the twenty-one of
+     block0_pipe.cu (the plain one, timer, three timing cuts, the seven
+     builds of the construct sets and the cast ladder, the five stages
+     and the three probe cuts that the timing cuts do not already give,
+     the bf16 epilogue's timer), the six builds of
+     frontend_head_pipe.cu and the six of frontend_head.cu that the head
+     probe runs, and the older build of stepcost.cu with nvcc, 61
+     libraries at once (the seconds printed);
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
      L = 16001 (the sinc frontend on a freq-masked bank there): the
@@ -27,16 +31,22 @@ Phases, each of which raises (exit code 1) on failure:
      against float64 (not gated);
      then the tensor-core
      frontend in its two probe layouts (bfloat16 only, also at the probes'
-     B = 256) and the frontend + block-0 head; then every variant of the
-     block-0 kernels (bfloat16: the construct sets and the cast ladder on
-     block0_pipe.cu and on the older kernel, each pair timed in turns; the
-     stages) and the tail kernels (three pools, SELU + layout change; both
+     B = 256) and the frontend + block-0 head (frontend_head_pipe.cu and
+     the older frontend_head.cu in both types, and in bf16 the new
+     source's half- and quarter-width builds, each under the head's gates,
+     timed in turns; in f32 the plain version with TF32 on, printed as a
+     control); then every variant of the block-0 kernels (bfloat16: the
+     construct sets, the six stages (stock chains timed beside dma, fill
+     and conv1) and the cast ladder on block0_pipe.cu and
+     on the older kernel, each pair timed in turns, and the five timing
+     cuts of both in turns) and the tail kernels (three pools, SELU +
+     layout change, with the stock chain's time; both
      types, one size with ragged tiles); then the step-cost kernel in its
      six modes at B = 128, T = 7168 and at a ragged geometry (its TMA
      build, and the older build's four modes that TMA took over, timed in
      turns with the stock call), and the chained-dot kernel at the twelve
      dot shapes at a visible eps, each with a planted fault its gate must
-     tell;
+     tell (the phase's seconds printed);
   4. the main paths, each with every kernel wrapper's launch count reset
      just before and read just after, and checked: Scorer.from_config(
      "configs/AASIST.conf") with the pretrained weights (bf16, the
@@ -1993,8 +2003,10 @@ def main() -> int:
     from aasist_tpu_torch.ops import mma_shapes as mm
     from aasist_tpu_torch.ops import stepcost as sc
     from aasist_tpu_torch.ops import tail_constructs as tc
+    from aasist_tpu_torch.ops import frontend_head as fh
     from aasist_tpu_torch.ops.frontend_head import (
-        fused_frontend_head, fused_frontend_head_reference)
+        fused_frontend_head, fused_frontend_head_older,
+        fused_frontend_head_reference)
     from aasist_tpu_torch.ops import block0_f32 as b32
     from aasist_tpu_torch.ops import block0_pipe as bp
     from aasist_tpu_torch.ops import frontend_f32 as f32
@@ -2005,9 +2017,9 @@ def main() -> int:
     from aasist_tpu_torch.ops.fused_frontend import (
         fused_frontend_fma, fused_frontend_reference)
     from aasist_tpu_torch.ops.fused_stack import (
-        fused_block0_fma, fused_block0_mma, fused_block0_reference,
-        fused_frontend_padded, fused_frontend_padded_fma,
-        fused_frontend_padded_reference)
+        fold_block0, fused_block0_fma, fused_block0_mma,
+        fused_block0_reference, fused_frontend_padded,
+        fused_frontend_padded_fma, fused_frontend_padded_reference)
     from aasist_tpu_torch.registry import build_model
     from aasist_tpu_torch.serving import Scorer
     from aasist_tpu_torch.tools import (
@@ -2039,33 +2051,40 @@ def main() -> int:
     for d in ([bv.constructs_defines(*f) for f in construct_sets.values()]
               + [bv.stage_defines(st) for st in bv.STAGES]
               + [bv.epi_defines(v) for v in bv.EPI_VARIANTS]
-              + [bv.cut_defines(c) for c in bv.CUTS]):
+              + [bv.cut_defines(c, older=True) for c in bv.CUTS]):
         variants[json.dumps(d, sort_keys=True)] = d
     variants[json.dumps(bp.TIMER_DEFINES)] = bp.TIMER_DEFINES
     # the builds of block0_pipe.cu: the timer, the cuts, the probes'
-    # construct sets and cast ladder, the timer of the timed sets
+    # construct sets, stages, cast ladder and cuts, the timer of the timed
+    # sets
     pipe = [bp.TIMER_DEFINES] + [{"B0P_CUT": c}
                                  for c in bp.PIPE_CUTS.values()]
     for _, d in ([bv.constructs_build(*f) for f in construct_sets.values()]
-                 + [bv.epi_build(v) for v in bv.EPI_VARIANTS]):
+                 + [bv.stage_build(st) for st in bv.STAGES]
+                 + [bv.epi_build(v) for v in bv.EPI_VARIANTS]
+                 + [bv.cut_build(c) for c in bv.CUTS]):
         if d and d not in pipe:
             pipe.append(d)
     for n in probe_b0_constructs.TIMED_SETS:
         d = bv.constructs_defines(*construct_sets[n])
         if d:
             pipe.append({**bp.TIMER_DEFINES, **d})
+    # the head's builds: both sources' probe variants (their base builds
+    # among them)
+    heads = list(probe_feb0_ablate.builds().values())
     entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
                                    "frontend_f32", "frontend_ffma",
-                                   "block0_f32",
-                                   "frontend_head", "tail_constructs",
+                                   "block0_f32", "tail_constructs",
                                    "stepcost", "mma_shapes", "block0_pipe")]
     entries += [("stepcost", sc.OLDER_DEFINES)]
+    entries += heads
     entries += [("block0_pipe", d) for d in pipe]
     entries += [("fused_block0", d) for d in variants.values()]
     libs = _build.load_all(entries)
     print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
           f"fused_block0.cu, {1 + len(pipe)} of block0_pipe.cu, 2 of "
-          f"stepcost.cu): {time.perf_counter() - t0:.1f} s")
+          f"stepcost.cu, {len(heads)} of frontend_head_pipe.cu and "
+          f"frontend_head.cu): {time.perf_counter() - t0:.1f} s")
     for (_, defines), lib in zip(entries, libs):
         print(f"[build] {lib.path.name} {defines or ''}: nvcc "
               f"{lib.build_seconds:.1f} s")
@@ -2074,6 +2093,7 @@ def main() -> int:
                 print(f"[build]   {line.strip()}")
 
     # ---------------------------------------------------------------- 3
+    t3 = time.perf_counter()
     cfg = load_config(ROOT / "configs" / "AASIST.conf")
     weights = ROOT / cfg.model_path
     model32 = load_npz(build_model(cfg.model_config), weights)
@@ -2500,7 +2520,14 @@ def main() -> int:
                          eps=1e-5)
         return F.selu(y), F.pad(h[:, 0], (0, 0, 0, 1))
 
-    head_results = {}
+    # the new head (csrc/frontend_head_pipe.cu) and the older one, and in
+    # bf16 the new source's builds with the same function (frame tiles half
+    # and a quarter as wide), each under the same gates; the new and the
+    # older head timed in turns
+    head_results = {}                  # fused_frontend_head
+    head_older_results = {}            # fused_frontend_head_older
+    same_function = {k: v for k, v in probe_feb0_ablate.builds().items()
+                     if k in ("half", "quarter")}
     for dname, b, length, masked in cases:
         dtype = getattr(torch, dname)
         tag = f"{dname} B={b} L={length}{' masked' if masked else ''}"
@@ -2512,71 +2539,128 @@ def main() -> int:
         bn_p, bn_s = bn_dicts(dtype)
         block = copy.deepcopy(model32.encoder[0]).to("cuda", dtype)
         t_out = (length - 128) // 3
+        heads = {"fused_frontend_head": fused_frontend_head,
+                 "fused_frontend_head_older": fused_frontend_head_older}
+        heads.update({
+            f"fused_frontend_head {vname}":
+                (lambda *a, d=d, src=src: fh.launch(*a, defines=d,
+                                                    source=src))
+            for vname, (src, d) in same_function.items()
+            if dname == "bfloat16"})
+        errs = {}
         with torch.inference_mode():
-            y1, x0 = fused_frontend_head(x, bank, bn_p, bn_s, block)
-            torch.cuda.synchronize()
             ry1, rx0 = fused_frontend_head_reference(x, bank, bn_p, bn_s,
                                                      block)
-            check(tuple(y1.shape) == (b, 32, 24, t_out)
-                  and tuple(x0.shape) == (b, 24, t_out)
-                  and y1.dtype == x0.dtype == dtype,
-                  f"head outputs {tuple(y1.shape)} {tuple(x0.shape)} "
-                  f"{y1.dtype}")
-            check(bool(torch.isfinite(y1).all())
-                  and bool(torch.isfinite(x0).all()), "head not finite")
-            row_max = x0.abs().amax(dim=(0, 2)).float()
-            check(row_max[23].item() == 0 and bool((row_max[:23] > 0).all()),
-                  f"head x0: row 23 and nothing else must be zero, {tag}")
-            tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
-            err_x0 = max_abs_diff(x0, rx0)
-            err_y1 = max_abs_diff(y1, ry1)
-            rel_y1 = err_y1 / ry1.abs().max().float().item()
-            print(f"[kernel] fused_frontend_head {tag}: x0 max|kernel-plain|"
-                  f" = {err_x0:.3e} (atol {tol['atol']}, rtol {tol['rtol']}),"
-                  f" row 23 exactly 0; y1 max|kernel-plain| = {err_y1:.3e}, "
-                  f"/ max|plain| = {rel_y1:.3e} (gate {TOL_HEAD_Y1[dname]})")
-            check(torch.allclose(x0.float(), rx0.float(), **tol),
-                  f"the head's x0 disagrees with its plain version, {tag}")
-            check(rel_y1 <= TOL_HEAD_Y1[dname],
-                  f"the head's y1 disagrees with its plain version, {tag}")
-            if dname == "bfloat16":
-                excess = head_y1_excess(y1, x0, block, **HEAD_Y1_OWN_X0_TOL)
-                print(f"[kernel] fused_frontend_head {tag}: y1 against the "
-                      f"f32 head of its own x0, worst element over (atol "
-                      f"{HEAD_Y1_OWN_X0_TOL['atol']}, rtol "
-                      f"{HEAD_Y1_OWN_X0_TOL['rtol']:.3e}) = {excess:.3e} "
-                      f"(gate 1)")
-                check(excess <= 1, f"the head's y1 is not conv1 + bn2 + "
-                      f"SELU of its x0 element by element, {tag}")
-            del y1, x0, ry1, rx0
+            top = ry1.abs().max().float().item()
+            for hname, fn in heads.items():
+                y1, x0 = fn(x, bank, bn_p, bn_s, block)
+                torch.cuda.synchronize()
+                check(tuple(y1.shape) == (b, 32, 24, t_out)
+                      and tuple(x0.shape) == (b, 24, t_out)
+                      and y1.dtype == x0.dtype == dtype,
+                      f"{hname} outputs {tuple(y1.shape)} {tuple(x0.shape)} "
+                      f"{y1.dtype}")
+                check(bool(torch.isfinite(y1).all())
+                      and bool(torch.isfinite(x0).all()),
+                      f"{hname} not finite")
+                row_max = x0.abs().amax(dim=(0, 2)).float()
+                check(row_max[23].item() == 0
+                      and bool((row_max[:23] > 0).all()),
+                      f"{hname} x0: row 23 and nothing else must be zero, "
+                      f"{tag}")
+                tol = TOL_F32 if dname == "float32" else TOL_BF16_KERNEL
+                err_x0 = max_abs_diff(x0, rx0)
+                err_y1 = max_abs_diff(y1, ry1)
+                rel_y1 = err_y1 / top
+                errs[hname] = (err_y1, rel_y1, err_x0)
+                print(f"[kernel] {hname} {tag}: x0 max|kernel-plain| = "
+                      f"{err_x0:.3e} (atol {tol['atol']}, rtol "
+                      f"{tol['rtol']}), row 23 exactly 0; y1 max|kernel-"
+                      f"plain| = {err_y1:.3e}, / max|plain| = {rel_y1:.3e} "
+                      f"(gate {TOL_HEAD_Y1[dname]})")
+                check(torch.allclose(x0.float(), rx0.float(), **tol),
+                      f"{hname}'s x0 disagrees with its plain version, {tag}")
+                check(rel_y1 <= TOL_HEAD_Y1[dname],
+                      f"{hname}'s y1 disagrees with its plain version, {tag}")
+                if dname == "bfloat16":
+                    excess = head_y1_excess(y1, x0, block,
+                                            **HEAD_Y1_OWN_X0_TOL)
+                    print(f"[kernel] {hname} {tag}: y1 against the f32 head "
+                          f"of its own x0, worst element over (atol "
+                          f"{HEAD_Y1_OWN_X0_TOL['atol']}, rtol "
+                          f"{HEAD_Y1_OWN_X0_TOL['rtol']:.3e}) = "
+                          f"{excess:.3e} (gate 1)")
+                    check(excess <= 1, f"{hname}'s y1 is not conv1 + bn2 + "
+                          f"SELU of its x0 element by element, {tag}")
+                del y1, x0
+            if dname == "float32" and b == 128:
+                # a control, not gated: the plain version with cuDNN's TF32
+                # on (PyTorch's default for convolutions; phase 1 turns it
+                # off) on 16 rows, against the TF32-off one and the kernel
+                y1 = fused_frontend_head(x[:16], bank, bn_p, bn_s, block)[0]
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    ty1 = fused_frontend_head_reference(
+                        x[:16], bank, bn_p, bn_s, block)[0]
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                top16 = ry1[:16].abs().max().float().item()
+                print(f"[kernel] fused_frontend_head {tag}, 16 rows: the "
+                      f"plain version with cuDNN's TF32 on, y1 / max|plain| "
+                      f"against TF32 off "
+                      f"{max_abs_diff(ty1, ry1[:16]) / top16:.3e}, against "
+                      f"the kernel {max_abs_diff(ty1, y1) / top16:.3e} "
+                      f"(the kernel against TF32 off "
+                      f"{max_abs_diff(y1, ry1[:16]) / top16:.3e}; not "
+                      f"gated: TF32 stays off for the gates)")
+                del y1, ty1
+            del ry1, rx0
             if b == 128:
-                ms = cuda_ms(lambda: fused_frontend_head(
-                    x, bank, bn_p, bn_s, block), 10)
+                runs = two_runs(
+                    {hname: (lambda fn=fn: fn(x, bank, bn_p, bn_s, block))
+                     for hname, fn in heads.items()}, 10)
                 plain = cuda_ms(lambda: fused_frontend_head_reference(
                     x, bank, bn_p, bn_s, block), 5)
                 libms = cuda_ms(lambda: head_library_chain(
                     x, bank, bn_p, bn_s, block), 5)
                 bound, by = head_bound(b, length, 70, dname)
-                head_results[dname] = dict(
-                    max_abs_err=err_y1, max_rel_err=rel_y1,
-                    x0_max_abs_err=err_x0, ms=ms, plain_ms=plain,
-                    library_ms=libms, bound_ms=bound, bound_by=by)
-                print(f"[kernel] fused_frontend_head {tag}: kernel {ms:.4f} "
-                      f"ms, plain {plain:.4f} ms, cuDNN chain {libms:.4f} "
-                      f"ms, bound {bound:.4f} ms ({by})  [{card}]")
+                ms = {hname: sum(r) / 2 for hname, r in runs.items()}
+                for hname, store in (
+                        ("fused_frontend_head", head_results),
+                        ("fused_frontend_head_older", head_older_results)):
+                    err_y1, rel_y1, err_x0 = errs[hname]
+                    store[dname] = dict(
+                        max_abs_err=err_y1, max_rel_err=rel_y1,
+                        x0_max_abs_err=err_x0, ms=ms[hname],
+                        runs=runs[hname], plain_ms=plain, library_ms=libms,
+                        bound_ms=bound, bound_by=by)
+                head_results[dname]["older_ms"] = \
+                    ms["fused_frontend_head_older"]
+                head_results[dname]["builds_ms"] = {
+                    hname.split()[-1]: v for hname, v in ms.items()
+                    if " " in hname}
+                print(f"[kernel] fused_frontend_head {tag}: "
+                      + ", ".join(f"{hname} {v:.4f} ms (runs "
+                                  f"{runs[hname][0]:.4f}, "
+                                  f"{runs[hname][1]:.4f})"
+                                  for hname, v in ms.items())
+                      + f" in turns, plain {plain:.4f} ms, cuDNN chain "
+                      f"{libms:.4f} ms, bound {bound:.4f} ms ({by})  "
+                      f"[{card}]")
         del x, block
         torch.cuda.empty_cache()
 
     # the block-0 variants (bf16 only): every construct set, stage and
-    # cast-ladder variant against its plain version, the constructs and the
-    # ladder on block0_pipe.cu and on the older kernel, each pair timed in
-    # turns
+    # cast-ladder variant against its plain version, on block0_pipe.cu and
+    # on the older kernel, each pair timed in turns; then the cuts of both
+    # in turns
     families = {
         "fused_block0_constructs": (
             bv.fused_block0_constructs, bv.fused_block0_constructs_older,
             bv.fused_block0_constructs_reference, construct_sets),
         "fused_block0_stage": (
-            bv.fused_block0_stage, None, bv.fused_block0_stage_reference,
+            bv.fused_block0_stage, bv.fused_block0_stage_older,
+            bv.fused_block0_stage_reference,
             {st: (st,) for st in bv.STAGES}),
         "fused_block0_epi": (
             bv.fused_block0_epi, bv.fused_block0_epi_older,
@@ -2585,6 +2669,46 @@ def main() -> int:
     variant_results = {name: {} for fam, (_, older, _, _) in families.items()
                        for name in ((fam, fam + "_older") if older
                                     else (fam,))}
+    def stage_dma_chain(z):
+        # stage dma as stock calls: the strided frame columns, channel 0,
+        # the other 31 channels zero (bf16 throughout: exact)
+        f_, t_ = z.shape[1] - 2, (z.shape[2] - 2) // 3
+        col = F.pad(z, (5, 0))[:, None, :f_, 0:3 * t_:3]
+        return F.pad(col, (0, 0, 0, 0, 0, 31))
+
+    def stage_fill_chain(z):
+        # stage fill as one cuDNN convolution with a ones kernel (bf16 in,
+        # f32 sums), channel-padded
+        f_, t_ = z.shape[1] - 2, (z.shape[2] - 2) // 3
+        ones = z.new_ones((1, 1, 2, 9))
+        y = F.conv2d(F.pad(z, (5, 0))[:, None], ones, stride=(1, 3))
+        return F.pad(y[:, :, :f_, :t_], (0, 0, 0, 0, 0, 31))
+
+    def stage_conv1_chain(block):
+        # stage conv1 as one cuDNN convolution: the sum over a pooled
+        # column's three times of conv1 (2x3, bn2 folded) and the downsample
+        # (1x3 on the second row) is one (2,5) kernel at stride (1,3), the
+        # shift and both biases three times; built here, outside the timing
+        prm = fold_block0(block)
+        c = prm.w1.shape[0]
+        k = prm.w1.new_zeros((c, 1, 2, 5))
+        for q in range(3):
+            k[:, 0, :, q:q + 3] += prm.w1.reshape(c, 2, 3)
+            k[:, 0, 1, q:q + 3] += prm.wd
+        bias = 3 * (prm.shift1 + bv.variant_bias(block)[1])
+        k, bias = k.bfloat16(), bias.bfloat16()
+
+        def chain(z):
+            f_, t_ = z.shape[1] - 2, (z.shape[2] - 2) // 3
+            y = F.conv2d(F.pad(z, (3, 0))[:, None], k, bias, stride=(1, 3))
+            return y[:, :, :f_, :t_]
+        return chain
+
+    # vname: block -> the stage's stock chain, a function of the frame
+    stage_library = {"dma": lambda block: stage_dma_chain,
+                     "fill": lambda block: stage_fill_chain,
+                     "conv1": stage_conv1_chain}
+    cut_results = {}                   # cut: {"ms", "older_ms", their runs}
     for b, length in [(128, 64600), (3, 16001)]:
         tag = f"bfloat16 B={b} L={length}"
         x = (torch.randn((b, length), generator=gen, device="cuda")
@@ -2596,6 +2720,24 @@ def main() -> int:
             z = fused_frontend_padded(x, bank, bn_p, bn_s)
             shape = (b, 32, 23, (length - 128) // 9)
             plain_base = bv.fused_block0_epi_reference(z, block, "base")
+            if b == 128:
+                # the timing cuts (no defined output), both kernels in turns
+                runs = two_runs(
+                    {f"{c}{tag_}": (lambda c=c, fn=fn: fn(z, block, c))
+                     for c in bv.CUTS
+                     for tag_, fn in (("", bv.fused_block0_cut),
+                                      (" older", bv.fused_block0_cut_older))},
+                    5)
+                for c in bv.CUTS:
+                    cut_results[c] = {
+                        "ms": sum(runs[c]) / 2, "runs": runs[c],
+                        "older_ms": sum(runs[c + " older"]) / 2,
+                        "older_runs": runs[c + " older"]}
+                print(f"[kernel] fused_block0_cut {tag}: "
+                      + ", ".join(f"{c} {v['ms']:.4f} ms (older "
+                                  f"{v['older_ms']:.4f})"
+                                  for c, v in cut_results.items())
+                      + f" in turns  [{card}]")
             for fam, (fn, older, ref_fn, cases_) in families.items():
                 builds = {fam: fn}
                 if older:
@@ -2644,6 +2786,15 @@ def main() -> int:
                         if older:
                             variant_results[fam][vname]["older_ms"] = \
                                 ms[fam + "_older"]
+                        if vname in stage_library:
+                            lib = stage_library[vname](block)
+                            lib_ms = cuda_ms(lambda: lib(z), 10)
+                            for name in builds:
+                                variant_results[name][vname][
+                                    "library_ms"] = lib_ms
+                            print(f"[kernel] {fam} {vname} {tag}: the stock "
+                                  f"chain {lib_ms:.4f} ms (max|chain - "
+                                  f"plain| {max_abs_diff(lib(z), plain):.3e})")
                         print(f"[kernel] {fam} {vname} {tag}: kernel "
                               + ", ".join(f"{name} {v:.4f} ms"
                                           for name, v in ms.items())
@@ -2731,13 +2882,17 @@ def main() -> int:
             if timed:
                 ms = cuda_ms(lambda: tc.selu_to_nchw(zc, how), 10)
                 plain_ms = cuda_ms(lambda: tc.selu_to_nchw_reference(zc), 5)
+                # the stock chain: F.selu in the working type, then the
+                # NCHW copy
+                lib_ms = cuda_ms(lambda: F.selu(zc).permute(
+                    2, 0, 1, 3).contiguous(), 10)
                 bound, by = bytes_bound(zc.numel(), zc.numel(), dname)
                 tail_results[(label, dname, b)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=None)
+                    bound_ms=bound, bound_by=by, library_ms=lib_ms)
                 print(f"[kernel] {label} {tag}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})  "
-                      f"[{card}]")
+                      f"{plain_ms:.4f} ms, F.selu + contiguous {lib_ms:.4f} "
+                      f"ms, bound {bound:.4f} ms ({by})  [{card}]")
         del plain
         del zc
         torch.cuda.empty_cache()
@@ -2821,6 +2976,8 @@ def main() -> int:
                   f" padded), plain {1e3 * r['plain_ms']:.3f} us, torch.mm "
                   f"{1e3 * r['library_ms']:.3f} us, bound "
                   f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']})  [{card}]")
+
+    print(f"[kernel] phase 3: {time.perf_counter() - t3:.1f} s")
 
     # ---------------------------------------------------------------- 4
     # every kernel wrapper a Scorer path can reach (the routers in front of
@@ -3092,11 +3249,14 @@ def main() -> int:
     probed = {"fused_frontend_dot_fm": fused_frontend_dot_fm,
               "fused_frontend_dot_bm": fused_frontend_dot_bm,
               "fused_frontend_head": fused_frontend_head,
+              "fused_frontend_head_older": fused_frontend_head_older,
               "fused_block0_constructs": bv.fused_block0_constructs,
               "fused_block0_constructs_older":
                   bv.fused_block0_constructs_older,
               "fused_block0_stage": bv.fused_block0_stage,
+              "fused_block0_stage_older": bv.fused_block0_stage_older,
               "fused_block0_cut": bv.fused_block0_cut,
+              "fused_block0_cut_older": bv.fused_block0_cut_older,
               "fused_block0_epi": bv.fused_block0_epi,
               "fused_block0_epi_older": bv.fused_block0_epi_older,
               "pool3_time": tc.pool3_time,
@@ -3111,12 +3271,15 @@ def main() -> int:
     dots = ("fused_frontend_dot_fm", "fused_frontend_dot_bm")
     probe_launches = dict.fromkeys(probed, 0)
     for probe, own in ((probe_frontend_variants, dots), (probe_fe_fix, dots),
-                       (probe_feb0_ablate, ("fused_frontend_head",)),
+                       (probe_feb0_ablate, ("fused_frontend_head",
+                                            "fused_frontend_head_older")),
                        (probe_b0_constructs,
                         ("fused_block0_constructs",
                          "fused_block0_constructs_older")),
                        (probe_b0_ablate, ("fused_block0_stage",
-                                          "fused_block0_cut")),
+                                          "fused_block0_stage_older",
+                                          "fused_block0_cut",
+                                          "fused_block0_cut_older")),
                        (probe_b0_epi, ("fused_block0_epi",
                                        "fused_block0_epi_older")),
                        (probe_tail_constructs, ("pool3_time",
@@ -3296,34 +3459,47 @@ def main() -> int:
             "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
             "replaces": where, "launches": probe_launches[name],
             **dot_results[name], "dtype": "bfloat16", "shape": [128, 64600]})
-    kernels.append({
-        "name": "fused_frontend_head", "route": "cuda",
-        "source": "aasist_tpu_torch/csrc/frontend_head.cu",
-        "replaces": "tools/probe_feb0_ablate.py:69",
-        "launches": probe_launches["fused_frontend_head"],
-        **head_results["bfloat16"], "dtype": "bfloat16",
-        "shape": [128, 64600], "float32": head_results["float32"]})
+    for name, src, results_ in (
+            ("fused_frontend_head", "frontend_head_pipe", head_results),
+            ("fused_frontend_head_older", "frontend_head",
+             head_older_results)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"aasist_tpu_torch/csrc/{src}.cu",
+            "replaces": "tools/probe_feb0_ablate.py:69",
+            "launches": probe_launches[name], **results_["bfloat16"],
+            "dtype": "bfloat16", "shape": [128, 64600],
+            "float32": results_["float32"]})
     # the block-0 variants: one entry per wrapper, its numbers those of the
     # variant named in "variant", every variant's under "variants"; the
-    # constructs and the ladder on block0_pipe.cu, their older builds and
-    # the stages on fused_block0.cu
+    # wrappers on block0_pipe.cu, their _older ones on fused_block0.cu; the
+    # cuts' times (no defined output) under the stage entries
     for fam, head, where in (
             ("fused_block0_constructs", "all",
              "tools/probe_b0_constructs.py:29"),
             ("fused_block0_constructs_older", "all",
              "tools/probe_b0_constructs.py:29"),
             ("fused_block0_stage", "conv2", "tools/probe_b0_ablate.py:32"),
+            ("fused_block0_stage_older", "conv2",
+             "tools/probe_b0_ablate.py:32"),
             ("fused_block0_epi", "vA", "tools/probe_b0_epi.py:41"),
             ("fused_block0_epi_older", "vA", "tools/probe_b0_epi.py:41")):
-        src = "block0_pipe" if fam in ("fused_block0_constructs",
-                                       "fused_block0_epi") else "fused_block0"
-        kernels.append({
+        older = fam.endswith("_older")
+        entry = {
             "name": fam, "route": "cuda",
-            "source": f"aasist_tpu_torch/csrc/{src}.cu",
+            "source": "aasist_tpu_torch/csrc/"
+                      f"{'fused_block0' if older else 'block0_pipe'}.cu",
             "replaces": where, "launches": probe_launches[fam],
             **variant_results[fam][head], "variant": head,
             "dtype": "bfloat16", "shape": [128, 64600],
-            "variants": variant_results[fam]})
+            "variants": variant_results[fam]}
+        if fam.startswith("fused_block0_stage"):
+            cut = "fused_block0_cut" + ("_older" if older else "")
+            entry["cuts_ms"] = {
+                c: v["older_ms" if older else "ms"]
+                for c, v in cut_results.items()}
+            entry["cuts_launches"] = probe_launches[cut]
+        kernels.append(entry)
     for name, label, where, shape, real in (
             ("pool3_time", "pool3_time staged",
              "tools/probe_tail_constructs.py:58",

@@ -26,6 +26,7 @@ from jax.experimental import pallas as pl
 from aasist_tpu.models.layers import sinc_filterbank
 
 from aasist_tpu_torch.models.layers import ResidualBlock
+from aasist_tpu_torch.ops import block0_pipe as bp
 from aasist_tpu_torch.ops import block0_variants as bv
 from aasist_tpu_torch.ops import fused_stack as fs
 from aasist_tpu_torch.tools import _common
@@ -275,7 +276,9 @@ CALLS = {
     "fused_block0_epi": ("vF",),
     "fused_block0_constructs_older": (True, True, True),
     "fused_block0_epi_older": ("vF",),
+    "fused_block0_stage_older": ("epi",),
 }
+CUT_WRAPPERS = ("fused_block0_cut", "fused_block0_cut_older")
 
 
 @pytest.mark.parametrize("name", list(CALLS))
@@ -375,21 +378,22 @@ def test_variants_need_block0(name):
 
 
 def test_defines_name_thirteen_builds():
-    """The constructs and the cast ladder are builds of
+    """The constructs, the stages and the cast ladder are builds of
     ``csrc/block0_pipe.cu``, their ``_older`` wrappers the same definitions
-    on ``csrc/fused_block0.cu``, and the stages builds of that older source.
-    The default build serves ``none``, ``base`` and ``full``; every other
-    variant has definitions of its own, and ``vA`` shares ``bf16epi``'s:
-    thirteen builds of the older source (as before the constructs and the
-    ladder moved), eight of the new one."""
+    on ``csrc/fused_block0.cu``.  The default build serves ``none``,
+    ``base`` and ``full``; every other variant has definitions of its own,
+    and ``vA`` shares ``bf16epi``'s: thirteen builds of each source."""
     new = [bv.constructs_build(*f) for f in CONSTRUCTS.values()]
+    new += [bv.stage_build(s) for s in bv.STAGES]
     new += [bv.epi_build(v) for v in bv.EPI_VARIANTS]
     older = [bv.constructs_build(*f, older=True) for f in CONSTRUCTS.values()]
-    older += [bv.stage_build(s) for s in bv.STAGES]
+    older += [bv.stage_build(s, older=True) for s in bv.STAGES]
     older += [bv.epi_build(v, older=True) for v in bv.EPI_VARIANTS]
     assert {src for src, _ in new} == {"block0_pipe"}
     assert {src for src, _ in older} == {"fused_block0"}
-    assert [d for _, d in new] == [d for _, d in older[:5] + older[11:]]
+    assert [d for _, d in new] == [d for _, d in older]
+    assert [d for _, d in new[5:11]] == [
+        {"B0_STAGE": k} for k in range(5)] + [None]
     assert bv.constructs_defines(False, False, False) is None
     assert bv.stage_defines("full") is None and bv.epi_defines("base") is None
     assert bv.epi_defines("vA") == bv.constructs_defines(True, False, False)
@@ -401,23 +405,31 @@ def test_defines_name_thirteen_builds():
     def count(builds):
         return len({(src, tuple(sorted((d or {}).items(), key=str)))
                     for src, d in builds})
-    assert count(older) == 13 and count(new) == 8
+    assert count(older) == 13 and count(new) == 13
 
 
 class _Built(Exception):
     """Raised in place of the build: every check before it passed."""
 
 
-@pytest.mark.parametrize("name", [n for n in CALLS if "stage" not in n])
+@pytest.mark.parametrize("name", [n for n in CALLS if "stage" not in n]
+                         + [n for n in CALLS if "stage" in n]
+                         + list(CUT_WRAPPERS))
 def test_wrappers_launch_their_builds(monkeypatch, name):
-    """Each wrapper asks for the build ``constructs_build`` / ``epi_build``
-    names, with the (3, C) bias of ``variant_bias``, and counts nothing when
-    it stops there.  (``check_frame`` is stood in for: a frame on a card
-    cannot be made here.)"""
+    """Each wrapper asks for the build ``constructs_build`` /
+    ``stage_build`` / ``epi_build`` / ``cut_build`` names, and counts
+    nothing when it stops there.  (``check_frame`` is stood in for: a frame
+    on a card cannot be made here.)"""
     from aasist_tpu_torch.ops import _build
     _, _, frame, block = _both(71, 1, 100, torch.bfloat16)
-    cases = CONSTRUCTS if "constructs" in name else {
-        v: (v,) for v in bv.EPI_VARIANTS}
+    family = next(f for f in ("constructs", "stage", "epi", "cut")
+                  if f"_{f}" in name)
+    cases = {"constructs": CONSTRUCTS,
+             "stage": {s: (s,) for s in bv.STAGES},
+             "epi": {v: (v,) for v in bv.EPI_VARIANTS},
+             "cut": {c: (c,) for c in bv.CUTS}}[family]
+    build = {"constructs": bv.constructs_build, "stage": bv.stage_build,
+             "epi": bv.epi_build, "cut": bv.cut_build}[family]
     seen = []
 
     def check_frame(n, z, blk, dtypes):
@@ -435,8 +447,9 @@ def test_wrappers_launch_their_builds(monkeypatch, name):
         with pytest.raises(_Built):
             fn(_FakeCuda(frame), block, *args)
     older = name.endswith("_older")
-    want = [bv.constructs_build(*a, older=older) if "constructs" in name
-            else bv.epi_build(*a, older=older) for a in cases.values()]
+    want = [build(*a, older=older) for a in cases.values()]
+    assert {src for src, _ in seen} == {
+        "fused_block0" if older else "block0_pipe"}
     assert seen == want and fn.launches == before
 
 
@@ -453,7 +466,10 @@ def test_variant_bias_rows():
 
 def test_cut_builds_are_timing_only():
     """``fused_block0_cut`` has no plain version: a CPU frame raises, as
-    does an unknown cut, and nothing is counted."""
+    does an unknown cut, and nothing is counted.  Each source numbers the
+    phases its own way (their headers): ``block0_pipe.cu`` keeps the bits
+    1 (no y1) and 2 (no MMA loop) of its timing cuts and adds 4 (no frame
+    tile issued) and 8 (no store); ``only_loop`` is all four on both."""
     _, _, frame, block = _both(70, 1, 100, torch.bfloat16)
     before = bv.fused_block0_cut.launches
     with pytest.raises(ValueError, match="unsupported device"):
@@ -461,8 +477,46 @@ def test_cut_builds_are_timing_only():
     with pytest.raises(ValueError, match="not one of"):
         bv.fused_block0_cut(frame, block, "no_pool")
     assert bv.fused_block0_cut.launches == before
-    assert {tuple(bv.cut_defines(c).items()) for c in bv.CUTS} == {
-        (("B0_CUT", bits),) for bits in (1, 2, 4, 8, 15)}
+    assert [bv.cut_defines(c, older=True) for c in bv.CUTS] == [
+        {"B0_CUT": bits} for bits in (1, 2, 4, 8, 15)]
+    assert [bv.cut_defines(c) for c in bv.CUTS] == [
+        {"B0P_CUT": bits} for bits in (4, 1, 2, 8, 15)]
+    pipe = bv.CUT_BITS[bv.PIPE_SOURCE][1]
+    assert pipe["no_conv1"] == bp.PIPE_CUTS["no_conv1"]
+    assert pipe["no_mma"] == bp.PIPE_CUTS["no_mma"]
+    for src in (bv.PIPE_SOURCE, bv.OLDER_SOURCE):
+        bits = bv.CUT_BITS[src][1]
+        assert bits["only_loop"] == sum(
+            bits[c] for c in bv.CUTS if c != "only_loop")
+
+
+def test_older_cut_builds_are_timing_only():
+    """``fused_block0_cut_older`` likewise: no plain version, a CPU frame
+    and an unknown cut raise, nothing is counted."""
+    _, _, frame, block = _both(70, 1, 100, torch.bfloat16)
+    before = bv.fused_block0_cut_older.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        bv.fused_block0_cut_older(frame, block, "no_load")
+    with pytest.raises(ValueError, match="not one of"):
+        bv.fused_block0_cut_older(frame, block, "no_pool")
+    assert bv.fused_block0_cut_older.launches == before
+
+
+@pytest.mark.parametrize("name", CUT_WRAPPERS)
+def test_cut_cuda_call_without_a_card_raises(name):
+    """With no card a cut's frame cannot be moved to ``cuda``, and a frame
+    that claims to be there raises before any result, nothing counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    frame = torch.zeros((2, 25, 102), dtype=torch.bfloat16)
+    block = ResidualBlock(1, C, first=True).eval()
+    fn = getattr(bv, name)
+    with pytest.raises((RuntimeError, AssertionError)):
+        fn(frame.to("cuda"), block, "no_epi")
+    before = fn.launches
+    with pytest.raises((RuntimeError, TypeError)):
+        fn(_FakeCuda(frame), block, "no_epi")
+    assert fn.launches == before
 
 
 # The gates the card's checks apply (tools/_common.py:b0_readings), shown

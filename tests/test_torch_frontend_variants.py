@@ -195,21 +195,25 @@ def test_head_edges_are_not_masked():
     assert bool((y1[:, :, :, -1] != 0).all())
 
 
+HEADS = ("fused_frontend_head", "fused_frontend_head_older")
+
+
 @pytest.mark.parametrize("name", ["fused_frontend_dot_fm",
-                                  "fused_frontend_dot_bm",
-                                  "fused_frontend_head"])
+                                  "fused_frontend_dot_bm", *HEADS])
 def test_cpu_tensors_take_the_plain_versions(name):
-    """A CPU tensor is no kernel launch and equals the plain version; a
-    device that is neither CPU nor CUDA raises."""
+    """A CPU tensor is no kernel launch and equals the plain version (the
+    older head's is the new one's); a device that is neither CPU nor CUDA
+    raises."""
     x, bank, bn_p, bn_s = _cpu_args()
     extra = ()
-    if name == "fused_frontend_head":
+    if name in HEADS:
         mod = fh
         extra = (load_jax_params(ResidualBlock(1, C, first=True),
                                  *_block0_params(7)).eval(),)
     else:
         mod = fv
-    fn, ref_fn = getattr(mod, name), getattr(mod, name + "_reference")
+    fn = getattr(mod, name)
+    ref_fn = getattr(mod, name.replace("_older", "") + "_reference")
     before = fn.launches
     with torch.inference_mode():
         got = fn(x, bank, bn_p, bn_s, *extra)
@@ -237,8 +241,7 @@ class _FakeCuda:
 
 
 @pytest.mark.parametrize("name", ["fused_frontend_dot_fm",
-                                  "fused_frontend_dot_bm",
-                                  "fused_frontend_head"])
+                                  "fused_frontend_dot_bm", *HEADS])
 def test_cuda_call_without_a_card_raises(name):
     """With no card there is no way to the plain version through the
     ``cuda`` device: moving the tensors there raises, and a call whose
@@ -248,7 +251,7 @@ def test_cuda_call_without_a_card_raises(name):
         pytest.skip("a CUDA device is present")
     x, bank, bn_p, bn_s = _cpu_args()
     extra = ((ResidualBlock(1, C, first=True).eval(),)
-             if name == "fused_frontend_head" else ())
+             if name in HEADS else ())
     fn = getattr(fh if extra else fv, name)
     with pytest.raises((RuntimeError, AssertionError)):
         fn(x.to("cuda"), bank.to("cuda"), bn_p, bn_s, *extra)
@@ -313,6 +316,113 @@ def test_head_guards_raise(what, dtype, xshape, bshape, contig, ch, exc,
     block = ResidualBlock(1, ch, first=True).eval()
     with pytest.raises(exc, match=match):
         fh.fused_frontend_head(x, bank, bn_p, bn_s, block)
+
+
+@pytest.mark.parametrize("what,dtype,xshape,bshape,contig,ch,exc,match",
+                         HEAD_GUARDS, ids=[g[0] for g in HEAD_GUARDS])
+def test_head_older_guards_raise(what, dtype, xshape, bshape, contig, ch,
+                                 exc, match):
+    """The older head's wrapper raises on the same inputs."""
+    x = _FakeCuda(torch.zeros(xshape, dtype=dtype))
+    bank = _FakeCuda(torch.zeros(bshape, dtype=dtype), contig)
+    bn_p, bn_s = _torch_bn()
+    block = ResidualBlock(1, ch, first=True).eval()
+    with pytest.raises(exc, match=match):
+        fh.fused_frontend_head_older(x, bank, bn_p, bn_s, block)
+
+
+def test_new_head_takes_at_most_24_rows():
+    """The new kernel's frame tile holds 24 pooled rows (75 filters are 25):
+    its wrapper refuses more, the older one's does not stop there."""
+    x = _FakeCuda(torch.zeros((2, 1000), dtype=torch.bfloat16))
+    bank = _FakeCuda(torch.zeros((75, 129), dtype=torch.bfloat16))
+    bn_p, bn_s = _torch_bn()
+    block = ResidualBlock(1, C, first=True).eval()
+    with pytest.raises(ValueError, match="unsupported shape"):
+        fh.fused_frontend_head(x, bank, bn_p, bn_s, block)
+    with pytest.raises(TypeError, match="BatchNorm tensors"):
+        fh.fused_frontend_head_older(x, bank, bn_p, bn_s, block)
+
+
+class _Built(Exception):
+    """Raised in place of the build: every check before it passed."""
+
+
+def _stand_in_checks(monkeypatch, seen):
+    """Stand in for the checks that need tensors on a card, and for the
+    build, which records (source, definitions) and raises ``_Built``."""
+    import types
+
+    from aasist_tpu_torch.ops import _build
+    from aasist_tpu_torch.ops import fused_frontend as fe
+
+    def check_args(name, x, bank, bn_p, bn_s, dtypes=None, max_rows=None):
+        return x.shape[0], x.shape[1], bank.shape[0], None
+
+    def fold_block0(block):
+        return types.SimpleNamespace(
+            w1=_FakeCuda(block.conv1.weight.detach()))
+
+    def load(src, defines=None):
+        seen.append((src, defines))
+        raise _Built
+    monkeypatch.setattr(fe, "check_args", check_args)
+    monkeypatch.setattr(fh.fs, "fold_block0", fold_block0)
+    monkeypatch.setattr(_build, "load", load)
+
+
+@pytest.mark.parametrize("name,source", [
+    ("fused_frontend_head", "frontend_head_pipe"),
+    ("fused_frontend_head_older", "frontend_head")])
+def test_head_wrappers_launch_their_builds(monkeypatch, name, source):
+    """``fused_frontend_head`` asks for ``csrc/frontend_head_pipe.cu``'s
+    plain build and ``fused_frontend_head_older`` for
+    ``csrc/frontend_head.cu``'s, and neither counts a launch when it stops
+    there."""
+    seen = []
+    _stand_in_checks(monkeypatch, seen)
+    x = _FakeCuda(torch.zeros((2, 1000), dtype=torch.bfloat16))
+    bank = _FakeCuda(torch.zeros((70, 129), dtype=torch.bfloat16))
+    bn_p, bn_s = _torch_bn()
+    fn = getattr(fh, name)
+    before = fn.launches
+    with pytest.raises(_Built):
+        fn(x, bank, bn_p, bn_s, ResidualBlock(1, C, first=True).eval())
+    assert seen == [(source, None)] and fn.launches == before
+
+
+def test_head_probe_builds_are_the_sources_variants(monkeypatch):
+    """Every build of the head probe (``aasist_tpu_torch/tools/
+    probe_feb0_ablate.py``) is one of the two sources with its definitions,
+    and ``launch`` asks for exactly that build: six of each, the new
+    source's tile widths half and a quarter of its default's (twice does
+    not fit in shared memory), the older one's half and twice."""
+    from aasist_tpu_torch.tools import probe_feb0_ablate as pfa
+
+    builds = pfa.builds()
+    assert {src for src, _ in builds.values()} == {fh.SOURCE,
+                                                   fh.OLDER_SOURCE}
+    assert builds["base"] == (fh.SOURCE, None)
+    assert builds["base older"] == (fh.OLDER_SOURCE, None)
+    assert builds["half"] == (fh.SOURCE, {"HEADP_SUB": 4})
+    assert builds["quarter"] == (fh.SOURCE, {"HEADP_SUB": 2})
+    assert "double" not in builds and "quarter older" not in builds
+    assert builds["double older"] == (fh.OLDER_SOURCE, {"HEAD_WARPS_T": 4})
+    assert len(builds) == 12
+    seen = []
+    _stand_in_checks(monkeypatch, seen)
+    x = _FakeCuda(torch.zeros((2, 1000), dtype=torch.bfloat16))
+    bank = _FakeCuda(torch.zeros((70, 129), dtype=torch.bfloat16))
+    bn_p, bn_s = _torch_bn()
+    block = ResidualBlock(1, C, first=True).eval()
+    for src, defines in builds.values():
+        with pytest.raises(_Built):
+            fh.launch(x, bank, bn_p, bn_s, block, defines, src)
+    assert seen == list(builds.values())
+    assert [n for n, (src, _) in builds.items() if src == fh.SOURCE] == [
+        "base", "noselu", "bf16acc", "nodot", "half", "quarter"]
+    with pytest.raises(ValueError, match="unknown source"):
+        fh.launch(x, bank, bn_p, bn_s, block, source="frontend_dot")
 
 
 def test_head_needs_block0():
