@@ -11,7 +11,9 @@ what does the filter-major layout's transpose cost.  It prints:
 
   (a) max |dot_bm - plain frontend| on a seeded (8, 64600) input (the plain
       bf16 chain rounds three times, the kernel once: an ulp or two, held
-      to 2e-2 absolute plus 2e-2 relative), and against v1;
+      to 2e-2 absolute plus 2e-2 relative), and against v1, for the
+      ``wgmma`` kernel (``csrc/frontend_dot_wg.cu``) and for the one before
+      it, ``fused_frontend_dot_bm_older`` (``csrc/frontend_dot.cu``);
   (b) frontend + block 0 (the stock ``ResidualBlock``: cuDNN convs, BN,
       SELU, pool) + sum, timed with CUDA events for
         v1      ``fused_frontend_fma``, the CUDA-core kernel (contiguous
@@ -20,7 +22,8 @@ what does the filter-major layout's transpose cost.  It prints:
         dot_fm  ``fused_frontend_dot_fm`` after ``permute`` + ``contiguous``,
       and block 0 alone on the contiguous tensor and on the view;
   (c) K = 1 against K = 5 back-to-back ``dot_bm`` launches: the slope, in
-      ms per launch, is the kernel's time free of per-call overhead.
+      ms per launch, is the kernel's time free of per-call overhead; the
+      same for ``dot_bm_older``.
 """
 
 from __future__ import annotations
@@ -58,18 +61,19 @@ def main(argv=None) -> int:
         xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
             (8, LENGTH)).astype(np.float32)).to("cuda", torch.bfloat16)
         ref = fused_frontend_reference(xs, bank, bn_p, bn_s).float()
-        got = fv.fused_frontend_dot_bm(xs, bank, bn_p, bn_s)
-        got = got[:, None, :f_out].float()
-        err = (got - ref).abs().max().item()
-        d_v1 = (got - fused_frontend_fma(xs, bank, bn_p, bn_s).float()
-                ).abs().max().item()
-        print(f"dot_bm err vs the plain frontend, (8, {LENGTH}): {err:.3e} "
-              f"(max |plain| {ref.abs().max().item():.3e}); vs v1 "
-              f"{d_v1:.3e}", flush=True)
-        if not torch.allclose(got, ref, **TOL):
-            print(f"probe_fe_fix: dot_bm is outside {TOL} of the plain "
-                  "frontend", file=sys.stderr)
-            return 1
+        v1 = fused_frontend_fma(xs, bank, bn_p, bn_s).float()
+        for name, fn in (("dot_bm", fv.fused_frontend_dot_bm),
+                         ("dot_bm_older", fv.fused_frontend_dot_bm_older)):
+            got = fn(xs, bank, bn_p, bn_s)[:, None, :f_out].float()
+            err = (got - ref).abs().max().item()
+            d_v1 = (got - v1).abs().max().item()
+            print(f"{name} err vs the plain frontend, (8, {LENGTH}): "
+                  f"{err:.3e} (max |plain| {ref.abs().max().item():.3e}); "
+                  f"vs v1 {d_v1:.3e}", flush=True)
+            if not torch.allclose(got, ref, **TOL):
+                print(f"probe_fe_fix: {name} is outside {TOL} of the plain "
+                      "frontend", file=sys.stderr)
+                return 1
 
         # (b)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -103,16 +107,18 @@ def main(argv=None) -> int:
               flush=True)
 
         # (c)
-        def back_to_back(k):
+        def back_to_back(dot, k):
             def fn():
                 for _ in range(k):
-                    fv.fused_frontend_dot_bm(x, bank, bn_p, bn_s)
+                    dot(x, bank, bn_p, bn_s)
             return fn
-        t1 = _common.cuda_ms(back_to_back(1), args.iters)
-        t5 = _common.cuda_ms(back_to_back(5), args.iters)
-        print(f"B={BATCH} dot_bm chained: K=1 {t1:.4f} ms, K=5 "
-              f"{t5:.4f} ms, slope {(t5 - t1) / 4:.4f} ms per launch  "
-              f"[{card}]", flush=True)
+        for name, dot in (("dot_bm", fv.fused_frontend_dot_bm),
+                          ("dot_bm_older", fv.fused_frontend_dot_bm_older)):
+            t1 = _common.cuda_ms(back_to_back(dot, 1), args.iters)
+            t5 = _common.cuda_ms(back_to_back(dot, 5), args.iters)
+            print(f"B={BATCH} {name} chained: K=1 {t1:.4f} ms, K=5 "
+                  f"{t5:.4f} ms, slope {(t5 - t1) / 4:.4f} ms per launch  "
+                  f"[{card}]", flush=True)
     return 0
 
 

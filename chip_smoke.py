@@ -5,15 +5,16 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. versions, the card's name and power limit; TF32 off for the f32 checks;
-  2. build the twelve CUDA sources from csrc/, the nineteen builds of
+  2. build the thirteen CUDA sources from csrc/, the nineteen builds of
      fused_block0.cu (its timer build among them), the twenty-one of
      block0_pipe.cu (the plain one, timer, three timing cuts, the seven
      builds of the construct sets and the cast ladder, the five stages
      and the three probe cuts that the timing cuts do not already give,
      the bf16 epilogue's timer), the six builds of
      frontend_head_pipe.cu and the six of frontend_head.cu that the head
-     probe runs, and the older build of stepcost.cu with nvcc, 61
-     libraries at once (the seconds printed);
+     probe runs, the three timing cuts of frontend_dot_wg.cu that the
+     frontend probe runs, and the older build of stepcost.cu with nvcc,
+     65 libraries at once (the seconds printed);
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shape (128, 64600) in float32 and bfloat16 and at B = 3,
      L = 16001 (the sinc frontend on a freq-masked bank there): the
@@ -206,6 +207,14 @@ ROOT = Path(__file__).resolve().parent
 # (rtol 2^-7) or 1e-6 in f32.
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
 TOL_BF16_KERNEL = dict(atol=2e-2, rtol=2e-2)
+# The wgmma frontend (csrc/frontend_dot_wg.cu) against the mma.sync one
+# (csrc/frontend_dot.cu): both round one f32 sum of the same bf16 products,
+# taken in another order, and the new one's SELU takes __expf where the
+# older calls expm1f, so an element may differ by one bf16 ulp where its
+# value lies near a rounding boundary.  Where |.|, the BatchNorm shift and
+# SELU leave a value near zero, that f32 noise (a few 1e-7) is many ulps of
+# the value: such elements are held to this share of max|older| instead.
+DOT_NEAR_ZERO = 1e-5
 TOL_BLOCK0 = {"float32": 5e-5, "bfloat16": 2e-2}
 TOL_HEAD_Y1 = {"float32": 5e-5, "bfloat16": 4e-2}
 TOL_SELU_NCHW = {"float32": dict(atol=1e-6, rtol=1e-6),
@@ -229,6 +238,20 @@ def max_abs_diff(a, b) -> float:
     y1 is 8.4 GB in float32)."""
     return max((x.float() - y.float()).abs().max().item()
                for x, y in zip(a.split(16), b.split(16)))
+
+
+def ulp_excess(new, old):
+    """(elements of ``new`` more than a bf16 ulp of the larger of the two
+    and ``DOT_NEAR_ZERO`` of max|old| from ``old``, elements that differ at
+    all, max|new - old|)."""
+    import torch
+
+    n, o = new.float(), old.float()
+    d = (n - o).abs()
+    ulp = torch.ldexp(torch.ones_like(d),
+                      torch.frexp(torch.maximum(n.abs(), o.abs()))[1] - 8)
+    over = (d > ulp) & (d > DOT_NEAR_ZERO * o.abs().max())
+    return int(over.sum()), int((d > 0).sum()), d.max().item()
 
 
 def bound_fields(bounds: dict, ms: float) -> dict:
@@ -2010,10 +2033,13 @@ def main() -> int:
     from aasist_tpu_torch.ops import block0_f32 as b32
     from aasist_tpu_torch.ops import block0_pipe as bp
     from aasist_tpu_torch.ops import frontend_f32 as f32
+    from aasist_tpu_torch.ops import frontend_variants as fv
     from aasist_tpu_torch.ops.frontend_variants import (
-        fused_frontend_dot_bm, fused_frontend_dot_bm_reference,
-        fused_frontend_dot_fm, fused_frontend_dot_fm_reference,
-        fused_frontend_dot_padded, fused_frontend_dot_plain)
+        fused_frontend_dot_bm, fused_frontend_dot_bm_older,
+        fused_frontend_dot_bm_reference, fused_frontend_dot_fm,
+        fused_frontend_dot_fm_older, fused_frontend_dot_fm_reference,
+        fused_frontend_dot_padded, fused_frontend_dot_padded_reference,
+        fused_frontend_dot_plain)
     from aasist_tpu_torch.ops.fused_frontend import (
         fused_frontend_fma, fused_frontend_reference)
     from aasist_tpu_torch.ops.fused_stack import (
@@ -2073,23 +2099,29 @@ def main() -> int:
     # among them)
     heads = list(probe_feb0_ablate.builds().values())
     entries = [(n, None) for n in ("fused_frontend", "frontend_dot",
+                                   "frontend_dot_wg",
                                    "frontend_f32", "frontend_ffma",
                                    "block0_f32", "tail_constructs",
                                    "stepcost", "mma_shapes", "block0_pipe")]
     entries += [("stepcost", sc.OLDER_DEFINES)]
+    # the frontend probe's builds of frontend_dot_wg.cu (its default among
+    # the entries above)
+    entries += [e for e in probe_frontend_variants.builds().values() if e[1]]
     entries += heads
     entries += [("block0_pipe", d) for d in pipe]
     entries += [("fused_block0", d) for d in variants.values()]
     libs = _build.load_all(entries)
     print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
           f"fused_block0.cu, {1 + len(pipe)} of block0_pipe.cu, 2 of "
-          f"stepcost.cu, {len(heads)} of frontend_head_pipe.cu and "
+          f"stepcost.cu, {len(probe_frontend_variants.builds())} of "
+          f"frontend_dot_wg.cu, {len(heads)} of frontend_head_pipe.cu and "
           f"frontend_head.cu): {time.perf_counter() - t0:.1f} s")
     for (_, defines), lib in zip(entries, libs):
         print(f"[build] {lib.path.name} {defines or ''}: nvcc "
               f"{lib.build_seconds:.1f} s")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "wgmma" in line.lower()):
                 print(f"[build]   {line.strip()}")
 
     # ---------------------------------------------------------------- 3
@@ -2448,12 +2480,31 @@ def main() -> int:
                   f"block0_tf32x3 disagrees with its plain version, F={f}")
     del block, z, ref, outs, out
 
-    # the frontend on the tensor cores, in its two store layouts (bf16 only)
+    # the frontend on the tensor cores, in its two probe layouts (bf16
+    # only): the wgmma kernel (csrc/frontend_dot_wg.cu) and the older one
+    # (csrc/frontend_dot.cu), each under the same gates at every shape, the
+    # new against the older within a bf16 ulp, and at B = 128 both timed in
+    # turns (new, older, older, new).  Then a reading, no route: the new
+    # source's plain and padded stores, gated as the routes' kernels are
+    # and timed in turns with them (route, new, new, route)
     dots = {"fused_frontend_dot_fm": (fused_frontend_dot_fm,
                                       fused_frontend_dot_fm_reference, 0),
             "fused_frontend_dot_bm": (fused_frontend_dot_bm,
-                                      fused_frontend_dot_bm_reference, 1)}
+                                      fused_frontend_dot_bm_reference, 1),
+            "fused_frontend_dot_fm_older": (fused_frontend_dot_fm_older,
+                                            fused_frontend_dot_fm_reference,
+                                            0),
+            "fused_frontend_dot_bm_older": (fused_frontend_dot_bm_older,
+                                            fused_frontend_dot_bm_reference,
+                                            1)}
+    readings = {"fused_frontend_dot_plain": (
+                    "plain", fused_frontend_dot_plain,
+                    fused_frontend_reference),
+                "fused_frontend_dot_padded": (
+                    "padded", fused_frontend_dot_padded,
+                    fused_frontend_dot_padded_reference)}
     dot_results = {}
+    wg_readings = {}                   # the new source's plain / padded
     for b, length, masked in [(128, 64600, False), (256, 64600, False),
                               (3, 16001, True)]:
         tag = f"bfloat16 B={b} L={length}{' masked' if masked else ''}"
@@ -2463,12 +2514,14 @@ def main() -> int:
         if masked:
             bank[10:20] = 0
         bn_p, bn_s = bn_dicts(torch.bfloat16)
+        args = (x, bank, bn_p, bn_s)
         t_out = (length - 128) // 3
-        v1 = fused_frontend_fma(x, bank, bn_p, bn_s)[:, 0]
+        v1 = fused_frontend_fma(*args)[:, 0]
+        outs = {}
         for name, (fn, ref_fn, row_axis) in dots.items():
-            got = fn(x, bank, bn_p, bn_s)
+            got = fn(*args)
             torch.cuda.synchronize()
-            ref = ref_fn(x, bank, bn_p, bn_s)
+            ref = ref_fn(*args)
             shape = (24, b, t_out) if row_axis == 0 else (b, 24, t_out)
             check(tuple(got.shape) == shape and got.dtype == torch.bfloat16
                   and got.is_contiguous(),
@@ -2489,24 +2542,91 @@ def main() -> int:
                   "gated)")
             check(torch.allclose(got.float(), ref.float(), **TOL_BF16_KERNEL),
                   f"{name} disagrees with its plain version, {tag}")
+            outs[name] = got
             if b == 128:
-                ms = cuda_ms(lambda: fn(x, bank, bn_p, bn_s), 20)
-                plain = cuda_ms(lambda: ref_fn(x, bank, bn_p, bn_s), 10)
+                dot_results[name] = dict(max_abs_err=err)
+            del ref, rows
+        for new in ("fused_frontend_dot_fm", "fused_frontend_dot_bm"):
+            over, differ, top = ulp_excess(outs[new], outs[new + "_older"])
+            print(f"[kernel] {new} {tag}: against {new}_older, {differ} of "
+                  f"{outs[new].numel()} elements differ, {over} by more "
+                  f"than a bf16 ulp and {DOT_NEAR_ZERO} of max|older| "
+                  f"(max|new - older| {top:.3e})")
+            check(over == 0, f"{new} is more than a bf16 ulp from "
+                  f"{new}_older, {tag}")
+            if b == 128:
+                dot_results[new]["vs_older"] = dict(
+                    differ=differ, max_abs_diff=top)
+        del outs
+        for name, (layout, route, ref_fn) in readings.items():
+            wg = lambda: fv._launch(f"{fv.SOURCE} {layout}", *args, layout,
+                                    fv.SOURCE)
+            got = wg()
+            torch.cuda.synchronize()
+            ref = ref_fn(*args)
+            check(got.shape == ref.shape and got.dtype == torch.bfloat16
+                  and bool(torch.isfinite(got).all()),
+                  f"{fv.SOURCE} {layout}: output {tuple(got.shape)}, want "
+                  f"{tuple(ref.shape)}, finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            check(torch.allclose(got.float(), ref.float(), **TOL_BF16_KERNEL),
+                  f"{fv.SOURCE}'s {layout} store disagrees with its plain "
+                  f"version, {tag}")
+            if layout == "padded":
+                border = (torch.cat([got[:, 0], got[:, -1]], 1).abs().max()
+                          + torch.cat([got[:, :, 0], got[:, :, -1]], 1)
+                          .abs().max()).item()
+                check(border == 0, f"{fv.SOURCE} padded border not zero, "
+                      f"{tag}")
+            over, differ, top = ulp_excess(got, route(*args))
+            print(f"[reading] {fv.SOURCE} {layout} store {tag}: "
+                  f"max|kernel-plain| = {err:.3e}; against {name}, {differ} "
+                  f"elements differ, {over} beyond a bf16 ulp (max "
+                  f"{top:.3e}; not a route)")
+            check(over == 0, f"{fv.SOURCE}'s {layout} store is more than a "
+                  f"bf16 ulp from {name}, {tag}")
+            del got, ref
+            if b == 128:
+                runs = {"route": [], "wg": []}
+                for k in ("route", "wg", "wg", "route"):
+                    runs[k].append(cuda_ms(
+                        wg if k == "wg" else lambda: route(*args), 20))
+                ms, route_ms = (float(np.mean(runs[k]))
+                                for k in ("wg", "route"))
+                wg_readings[name] = dict(
+                    source=f"aasist_tpu_torch/csrc/{fv.SOURCE}.cu",
+                    max_abs_err=err, ms=ms, route_ms=route_ms,
+                    runs=runs["wg"], route_runs=runs["route"])
+                print(f"[reading] {fv.SOURCE} {layout} store {tag}: "
+                      f"{ms:.4f} ms (runs {[round(v, 4) for v in runs['wg']]}"
+                      f"), {name} in the same turns {route_ms:.4f} ms (runs "
+                      f"{[round(v, 4) for v in runs['route']]})  [{card}]")
+        if b == 128:
+            bound, by = frontend_bound(b, length, 70, "bfloat16", rows=24)
+            for new in ("fused_frontend_dot_fm", "fused_frontend_dot_bm"):
+                ref_fn, row_axis = dots[new][1:]
+                plain = cuda_ms(lambda: ref_fn(*args), 10)
 
                 def lib_fn():
-                    h = F.pad(library_chain(x, bank, bn_p, bn_s)[:, 0],
-                              (0, 0, 0, 1))
+                    h = F.pad(library_chain(*args)[:, 0], (0, 0, 0, 1))
                     return (h.permute(1, 0, 2).contiguous() if row_axis == 0
                             else h)
                 libms = cuda_ms(lib_fn, 10)
-                bound, by = frontend_bound(b, length, 70, "bfloat16", rows=24)
-                dot_results[name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=libms,
-                    bound_ms=bound, bound_by=by)
-                print(f"[kernel] {name} {tag}: kernel {ms:.4f} ms, plain "
-                      f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({by})  [{card}]")
-            del got, ref, rows
+                pair = (new, new + "_older")
+                runs = {k: [] for k in pair}
+                for k in pair + pair[::-1]:
+                    runs[k].append(cuda_ms(lambda: dots[k][0](*args), 20))
+                for k in pair:
+                    ms = float(np.mean(runs[k]))
+                    dot_results[k].update(
+                        ms=ms, runs=runs[k], plain_ms=plain, library_ms=libms,
+                        bound_ms=bound, bound_by=by, bound_share=bound / ms)
+                    print(f"[kernel] {k} {tag}: kernel {ms:.4f} ms (runs "
+                          f"{[round(v, 4) for v in runs[k]]}), plain "
+                          f"{plain:.4f} ms, cuDNN chain {libms:.4f} ms, "
+                          f"bound {bound:.4f} ms ({by}), the kernel at "
+                          f"{100 * bound / ms:.1f} % of it  [{card}]")
+                dot_results[new]["older_ms"] = dot_results[pair[1]]["ms"]
         del x, v1
     torch.cuda.empty_cache()
 
@@ -3248,6 +3368,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 7
     probed = {"fused_frontend_dot_fm": fused_frontend_dot_fm,
               "fused_frontend_dot_bm": fused_frontend_dot_bm,
+              "fused_frontend_dot_fm_older": fused_frontend_dot_fm_older,
+              "fused_frontend_dot_bm_older": fused_frontend_dot_bm_older,
               "fused_frontend_head": fused_frontend_head,
               "fused_frontend_head_older": fused_frontend_head_older,
               "fused_block0_constructs": bv.fused_block0_constructs,
@@ -3268,9 +3390,15 @@ def main() -> int:
     # each probe with the kernels it must launch; every count is set to 0
     # just before a probe and read just after it, and a kernel's launches
     # are the sum over the probes that run it
-    dots = ("fused_frontend_dot_fm", "fused_frontend_dot_bm")
+    dots = ("fused_frontend_dot_fm", "fused_frontend_dot_bm",
+            "fused_frontend_dot_fm_older", "fused_frontend_dot_bm_older")
     probe_launches = dict.fromkeys(probed, 0)
-    for probe, own in ((probe_frontend_variants, dots), (probe_fe_fix, dots),
+    # probe_fe_fix checks and times the batch-major kernels, new and older,
+    # and puts the new filter-major one in front of block 0
+    for probe, own in ((probe_frontend_variants, dots),
+                       (probe_fe_fix, ("fused_frontend_dot_fm",
+                                       "fused_frontend_dot_bm",
+                                       "fused_frontend_dot_bm_older")),
                        (probe_feb0_ablate, ("fused_frontend_head",
                                             "fused_frontend_head_older")),
                        (probe_b0_constructs,
@@ -3370,7 +3498,8 @@ def main() -> int:
              "fused_frontend_dot_plain"],
          "zoo_launches": zoo_runs("fused_frontend_dot_plain"),
          **dot_plain_results["bfloat16"], "dtype": "bfloat16",
-         "shape": [128, 64600], "path": "bf16 default"},
+         "shape": [128, 64600], "path": "bf16 default",
+         "wgmma_reading": wg_readings["fused_frontend_dot_plain"]},
         {"name": "fused_frontend_dot_padded", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
          "replaces": "tools/fused_stack.py:180",
@@ -3378,7 +3507,8 @@ def main() -> int:
          "eval_launches": eval_launches["bf16_stack"][
              "fused_frontend_dot_padded"],
          **s16["fused_frontend_dot_padded"], "dtype": "bfloat16",
-         "shape": [128, 64600], "path": "bf16 stack"},
+         "shape": [128, 64600], "path": "bf16 stack",
+         "wgmma_reading": wg_readings["fused_frontend_dot_padded"]},
         {"name": "block0_pipe", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/block0_pipe.cu",
          "replaces": "tools/fused_stack.py:250",
@@ -3451,14 +3581,19 @@ def main() -> int:
          "float32": {**s32["fused_block0"], "launches":
                      f32_stack_old_launches["fused_block0_fma"]}},
     ]
+    # the probe layouts: the wgmma kernel's wrappers and their _older twins
+    # on csrc/frontend_dot.cu
     probes = {"fused_frontend_dot_fm": "tools/probe_frontend_variants.py:62",
               "fused_frontend_dot_bm": "tools/probe_fe_fix.py:43"}
     for name, where in probes.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
-            "replaces": where, "launches": probe_launches[name],
-            **dot_results[name], "dtype": "bfloat16", "shape": [128, 64600]})
+        for wrapper, src in ((name, fv.SOURCE),
+                             (name + "_older", fv.OLDER_SOURCE)):
+            kernels.append({
+                "name": wrapper, "route": "cuda",
+                "source": f"aasist_tpu_torch/csrc/{src}.cu",
+                "replaces": where, "launches": probe_launches[wrapper],
+                **dot_results[wrapper], "dtype": "bfloat16",
+                "shape": [128, 64600]})
     for name, src, results_ in (
             ("fused_frontend_head", "frontend_head_pipe", head_results),
             ("fused_frontend_head_older", "frontend_head",

@@ -148,8 +148,25 @@ def test_block0_pipe_work_covers_each_output_once(b, f, t_out):
     assert (seen == 1).all()
 
 
+def _dot_source_tile(source):
+    """The pooled columns of a work item as the source states them."""
+    from aasist_tpu_torch.ops import _build
+
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    const = {m[1]: m[2] for m in re.finditer(
+        r"constexpr int (\w+) = ([^;]+);", text)}
+    if const["TILE"] == "16 * SUB * WARPS":           # csrc/frontend_dot.cu
+        return 16 * int(const["SUB"]) * int(const["WARPS"])
+    return int(const["TILE"])
+
+
+@pytest.mark.parametrize("source", ["frontend_dot_wg", "frontend_dot"])
 @pytest.mark.parametrize("b,length", [(128, 64600), (3, 16001)])
-def test_frontend_dot_work_covers_each_output_once(b, length):
+def test_frontend_dot_work_covers_each_output_once(b, length, source):
+    """Both sources' items (the wgmma kernel's and the older one's) are
+    ``dot_work``'s: their TILE is ``DOT_TILE``, and the items cover each
+    output column once."""
+    assert _dot_source_tile(source) == fv.DOT_TILE
     t_out = (length - 128) // 3
     n_tiles, n_work = fv.dot_work(b, length)
     assert n_tiles == -(-t_out // fv.DOT_TILE) and n_work == b * n_tiles

@@ -70,12 +70,10 @@ def _torch_bn():
     return t(FE_P), t(FE_S)
 
 
-@pytest.mark.parametrize("b,length,masked", [(2, 2400, False),
-                                             (3, 4000, True)])
-def test_dot_fm_matches_run_v2(interpret_pallas, b, length, masked):
-    """``fused_frontend_dot_fm`` (plain route) against the filter-major
-    Pallas kernel, f32, atol 1e-4 (the JAX kernel's own gate); row 23 is
-    exactly zero on both sides."""
+@functools.lru_cache(maxsize=None)
+def _run_v2(b, length, masked):
+    """``run_v2``'s output and T (interpret mode, under the caller's
+    ``interpret_pallas``), computed once for both wrappers."""
     bank, x, u = _bank(masked), _x(1, b, length), 256
     xt, t_out = PFV.make_xt(jnp.asarray(x), u)
     inv = 1.0 / np.sqrt(FE_S["var"][0] + BN_EPS)
@@ -85,39 +83,61 @@ def test_dot_fm_matches_run_v2(interpret_pallas, b, length, masked):
     ref = np.asarray(PFV.run_v2(xt, jnp.asarray(FF.pack_filterbank(bank)),
                                 jnp.asarray(sc), b, u, 70))
     assert ref.shape == (24, b, xt.shape[0] * u)
+    return ref, t_out
+
+
+@functools.lru_cache(maxsize=None)
+def _fe_v2bm(b, length, masked):
+    bank, x = _bank(masked), _x(2, b, length)
+    return np.asarray(PFF.fe_v2bm(jnp.asarray(x), jnp.asarray(bank), FE_P,
+                                  FE_S, u=256))
+
+
+@pytest.mark.parametrize("name", ["fused_frontend_dot_fm",
+                                  "fused_frontend_dot_fm_older"])
+@pytest.mark.parametrize("b,length,masked", [(2, 2400, False),
+                                             (3, 4000, True)])
+def test_dot_fm_matches_run_v2(interpret_pallas, b, length, masked, name):
+    """``fused_frontend_dot_fm`` and its ``_older`` twin (plain route)
+    against the filter-major Pallas kernel, f32, atol 1e-4 (the JAX
+    kernel's own gate); row 23 is exactly zero on both sides."""
+    bank, x = _bank(masked), _x(1, b, length)
+    ref, t_out = _run_v2(b, length, masked)
 
     bn_p, bn_s = _torch_bn()
-    got = fv.fused_frontend_dot_fm(torch.from_numpy(x),
-                                   torch.from_numpy(bank), bn_p, bn_s).numpy()
+    got = getattr(fv, name)(torch.from_numpy(x), torch.from_numpy(bank),
+                            bn_p, bn_s).numpy()
     assert got.shape == (24, b, t_out) and t_out == (length - 128) // 3
     np.testing.assert_allclose(got, ref[:, :, :t_out], atol=1e-4, rtol=0)
     assert np.all(got[23] == 0) and np.all(ref[23] == 0)
     assert np.all(np.abs(got[:23]).max(axis=(1, 2)) > 0)
 
 
+@pytest.mark.parametrize("name", ["fused_frontend_dot_bm",
+                                  "fused_frontend_dot_bm_older"])
 @pytest.mark.parametrize("b,length,masked", [(2, 2400, True),
                                              (3, 4000, False)])
-def test_dot_bm_matches_fe_v2bm(interpret_pallas, b, length, masked):
-    """``fused_frontend_dot_bm`` (plain route) against the batch-major
-    Pallas kernel through ``fe_v2bm``, f32, atol 1e-4; the port's row 23 is
-    exactly zero, and ``out[:, None, :23]`` is the frontend's output."""
+def test_dot_bm_matches_fe_v2bm(interpret_pallas, b, length, masked, name):
+    """``fused_frontend_dot_bm`` and its ``_older`` twin (plain route)
+    against the batch-major Pallas kernel through ``fe_v2bm``, f32, atol
+    1e-4; the port's row 23 is exactly zero, and ``out[:, None, :23]`` is
+    the frontend's output."""
     bank, x = _bank(masked), _x(2, b, length)
-    ref = np.asarray(PFF.fe_v2bm(jnp.asarray(x), jnp.asarray(bank), FE_P,
-                                 FE_S, u=256))
+    ref = _fe_v2bm(b, length, masked)
     t_out = (length - 128) // 3
     assert ref.shape == (b, 1, 23, t_out)
 
     bn_p, bn_s = _torch_bn()
-    got = fv.fused_frontend_dot_bm(torch.from_numpy(x),
-                                   torch.from_numpy(bank), bn_p, bn_s)
+    got = getattr(fv, name)(torch.from_numpy(x), torch.from_numpy(bank),
+                            bn_p, bn_s)
     assert tuple(got.shape) == (b, 24, t_out)
     np.testing.assert_allclose(got[:, None, :23].numpy(), ref, atol=1e-4,
                                rtol=0)
     assert bool((got[:, 23] == 0).all())
     assert bool((got[:, :23].abs().amax(dim=(0, 2)) > 0).all())
     # the two layouts hold the same values
-    fm = fv.fused_frontend_dot_fm(torch.from_numpy(x), torch.from_numpy(bank),
-                                  bn_p, bn_s)
+    fm = getattr(fv, name.replace("_bm", "_fm"))(
+        torch.from_numpy(x), torch.from_numpy(bank), bn_p, bn_s)
     torch.testing.assert_close(fm.permute(1, 0, 2), got, rtol=0, atol=0)
 
 
@@ -196,10 +216,11 @@ def test_head_edges_are_not_masked():
 
 
 HEADS = ("fused_frontend_head", "fused_frontend_head_older")
+DOTS = ("fused_frontend_dot_fm", "fused_frontend_dot_bm",
+        "fused_frontend_dot_fm_older", "fused_frontend_dot_bm_older")
 
 
-@pytest.mark.parametrize("name", ["fused_frontend_dot_fm",
-                                  "fused_frontend_dot_bm", *HEADS])
+@pytest.mark.parametrize("name", [*DOTS, *HEADS])
 def test_cpu_tensors_take_the_plain_versions(name):
     """A CPU tensor is no kernel launch and equals the plain version (the
     older head's is the new one's); a device that is neither CPU nor CUDA
@@ -240,8 +261,7 @@ class _FakeCuda:
         return self._c
 
 
-@pytest.mark.parametrize("name", ["fused_frontend_dot_fm",
-                                  "fused_frontend_dot_bm", *HEADS])
+@pytest.mark.parametrize("name", [*DOTS, *HEADS])
 def test_cuda_call_without_a_card_raises(name):
     """With no card there is no way to the plain version through the
     ``cuda`` device: moving the tensors there raises, and a call whose
@@ -281,8 +301,7 @@ GUARDS = [
 
 @pytest.mark.parametrize("what,dtype,xshape,bshape,contig,exc,match", GUARDS,
                          ids=[g[0] for g in GUARDS])
-@pytest.mark.parametrize("name", ["fused_frontend_dot_fm",
-                                  "fused_frontend_dot_bm"])
+@pytest.mark.parametrize("name", DOTS)
 def test_dot_guards_raise(name, what, dtype, xshape, bshape, contig, exc,
                           match):
     x = _FakeCuda(torch.zeros(xshape, dtype=dtype), contig)
@@ -389,6 +408,68 @@ def test_head_wrappers_launch_their_builds(monkeypatch, name, source):
     with pytest.raises(_Built):
         fn(x, bank, bn_p, bn_s, ResidualBlock(1, C, first=True).eval())
     assert seen == [(source, None)] and fn.launches == before
+
+
+@pytest.mark.parametrize("name,source", [
+    ("fused_frontend_dot_fm", "frontend_dot_wg"),
+    ("fused_frontend_dot_bm", "frontend_dot_wg"),
+    ("fused_frontend_dot_fm_older", "frontend_dot"),
+    ("fused_frontend_dot_bm_older", "frontend_dot"),
+    ("fused_frontend_dot_plain", "frontend_dot"),
+    ("fused_frontend_dot_padded", "frontend_dot")])
+def test_dot_wrappers_launch_their_builds(monkeypatch, name, source):
+    """``fused_frontend_dot_{fm,bm}`` ask for ``csrc/frontend_dot_wg.cu``;
+    their ``_older`` twins and the Scorer's routes,
+    ``fused_frontend_dot_{plain,padded}``, for ``csrc/frontend_dot.cu``;
+    none counts a launch when the build stops it.  ``_launch`` refuses a
+    source or layout it does not know."""
+    seen = []
+    _stand_in_checks(monkeypatch, seen)
+    x = _FakeCuda(torch.zeros((2, 1000), dtype=torch.bfloat16))
+    bank = _FakeCuda(torch.zeros((70, 129), dtype=torch.bfloat16))
+    bn_p, bn_s = _torch_bn()
+    fn = getattr(fv, name)
+    before = fn.launches
+    with pytest.raises(_Built):
+        fn(x, bank, bn_p, bn_s)
+    assert seen == [(source, None)] and fn.launches == before
+    assert source in (fv.SOURCE, fv.OLDER_SOURCE)
+    with pytest.raises(ValueError, match="unknown source"):
+        fv._launch(name, x, bank, bn_p, bn_s, "fm", "frontend_head")
+    with pytest.raises(ValueError, match="unknown source"):
+        fv._launch(name, x, bank, bn_p, bn_s, "nchw", source)
+
+
+def test_dot_probe_builds_are_the_sources_variants(monkeypatch):
+    """Every build the frontend probe (``aasist_tpu_torch/tools/
+    probe_frontend_variants.py``) times is ``csrc/frontend_dot_wg.cu`` with
+    definitions its header names, and ``_launch`` asks for exactly that
+    build; the default first and the only one checked, then the
+    timing-only cuts."""
+    from aasist_tpu_torch.ops import _build
+    from aasist_tpu_torch.tools import probe_frontend_variants as pfv
+
+    builds = pfv.builds()
+    assert list(builds) == ["base", "one_window", "no_store",
+                            "one_window_no_store"]
+    assert builds["base"] == (fv.SOURCE, None)
+    assert [n for n, (_, checked) in pfv.WG_BUILDS.items() if checked] == [
+        "base"]
+    assert [d for d, _ in list(pfv.WG_BUILDS.values())[1:]] == [
+        {"FDW_CUT": 1}, {"FDW_CUT": 2}, {"FDW_CUT": 3}]
+    header = (_build.CSRC / f"{fv.SOURCE}.cu").read_text()
+    for _, defines in builds.values():
+        for name in defines or ():
+            assert f"#ifdef {name}" in header or f"#ifndef {name}" in header
+    seen = []
+    _stand_in_checks(monkeypatch, seen)
+    x = _FakeCuda(torch.zeros((2, 1000), dtype=torch.bfloat16))
+    bank = _FakeCuda(torch.zeros((70, 129), dtype=torch.bfloat16))
+    bn_p, bn_s = _torch_bn()
+    for src, defines in builds.values():
+        with pytest.raises(_Built):
+            fv._launch("probe", x, bank, bn_p, bn_s, "fm", src, defines)
+    assert seen == list(builds.values())
 
 
 def test_head_probe_builds_are_the_sources_variants(monkeypatch):
