@@ -13,13 +13,19 @@ Counterparts of the kernels of ``tools/probe_tail_constructs.py``:
     pool3_time_major(y)       (B, C, T, F) -> (B, C, T // 3, F)
         ``pool_sublane``: the pool over the slower axis of a time-major
         tensor.
-    selu_to_nchw(z, how)      (C, F1, B, T) -> (B, C, F1, T)
+    selu_to_nchw(z)           (C, F1, B, T) -> (B, C, F1, T)
         ``geg_write``: SELU (f32 inside) and the change from the compute
-        layout to NCHW.  Time is innermost on both sides, so the kernel moves
-        whole rows with coalesced reads and writes.  ``how`` is "vector" (a
-        thread moves 16 bytes; T must be a multiple of that many elements)
-        or "staged" (a chunk of a row goes through shared memory; any T);
-        None takes "vector" where T allows it.
+        layout to NCHW, any T (``csrc/selu_nchw.cu``: a warp a row, 16-byte
+        loads and stores, each output vector realigned from two input
+        vectors in registers).  ``selu_to_nchw_cut(z)`` is its timing-only
+        build without SELU (the layout change alone: z permuted).
+    selu_to_nchw_older(z, how)
+        The same on the older kernels of ``csrc/tail_constructs.cu``.
+        Time is innermost on both sides, so they move whole rows with
+        coalesced reads and writes.  ``how`` is "vector" (a thread moves 16
+        bytes; T must be a multiple of that many elements) or "staged" (a
+        chunk of a row goes through shared memory; any T); None takes
+        "vector" where T allows it.
 
 Any sizes; the TPU kernels' tile sizes (G, V, U) have no counterpart.  The
 pools floor: the last ``T % 3`` times are dropped, as ``F.max_pool2d`` drops
@@ -76,9 +82,10 @@ def _check(name: str, t: torch.Tensor, layout: str) -> None:
                          f"got {tuple(t.shape)}")
 
 
-def _call(name: str, entry: str, argtypes, out: torch.Tensor, *args) -> None:
+def _call(name: str, entry: str, argtypes, out: torch.Tensor, *args,
+          source: str = "tail_constructs", defines=None) -> None:
     from aasist_tpu_torch.ops import _build
-    fn = getattr(_build.load("tail_constructs").lib, entry)
+    fn = getattr(_build.load(source, defines).lib, entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     with torch.cuda.device(out.device):
@@ -131,35 +138,88 @@ def pool3_time_major(y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def selu_to_nchw(z: torch.Tensor, how: Optional[str] = None
-                 ) -> torch.Tensor:
-    """SELU and the layout change (C, F1, B, T) -> (B, C, F1, T), in ``z``'s
-    dtype; ``how`` picks the formulation (the module's header).  Every
-    launch adds one to ``selu_to_nchw.launches``."""
-    if how is not None and how not in SELU_HOW:
-        raise ValueError(f"selu_to_nchw: {how!r} is not one of {SELU_HOW}")
-    if z.device.type == "cpu":
-        return selu_to_nchw_reference(z)
-    _check("selu_to_nchw", z, "(C, F1, B, T)")
+def _selu_nchw(name: str, z: torch.Tensor, out: Optional[torch.Tensor],
+               defines) -> torch.Tensor:
+    _check(name, z, "(C, F1, B, T)")
     c, f1, b, t = z.shape
     if min(c, f1, b, t) < 1 or c * f1 >= 2 ** 31:
-        raise ValueError(f"selu_to_nchw: unsupported shape {tuple(z.shape)}")
+        raise ValueError(f"{name}: unsupported shape {tuple(z.shape)}")
+    if out is None:
+        out = torch.empty((b, c, f1, t), dtype=z.dtype, device=z.device)
+    elif (out.device != z.device or out.dtype != z.dtype
+          or tuple(out.shape) != (b, c, f1, t) or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {(b, c, f1, t)} "
+                         f"{z.dtype} tensor on {z.device}")
+    _call(name, "aasist_selu_nchw",
+          [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+          out, z.data_ptr(), out.data_ptr(), c, f1, b, t,
+          fe._DTYPES[z.dtype], source="selu_nchw", defines=defines)
+    return out
+
+
+def selu_to_nchw(z: torch.Tensor, out: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """SELU and the layout change (C, F1, B, T) -> (B, C, F1, T), in ``z``'s
+    dtype, any T and any alignment of the tensors' bases: a new tensor, or
+    ``out`` written in place.  Every launch adds one to
+    ``selu_to_nchw.launches``."""
+    if z.device.type == "cpu":
+        ref = selu_to_nchw_reference(z)
+        return ref if out is None else out.copy_(ref)
+    out = _selu_nchw("selu_to_nchw", z, out, None)
+    selu_to_nchw.launches += 1
+    return out
+
+
+CUT_DEFINES = {"SNC_CUT": 1}
+
+
+def selu_to_nchw_cut(z: torch.Tensor) -> torch.Tensor:
+    """The timing-only ``SNC_CUT`` build of ``selu_to_nchw``: the layout
+    change without SELU, ``z.permute(2, 0, 1, 3)`` copied.  Every launch
+    adds one to ``selu_to_nchw_cut.launches``."""
+    if z.device.type == "cpu":
+        return z.permute(2, 0, 1, 3).contiguous()
+    out = _selu_nchw("selu_to_nchw_cut", z, None, CUT_DEFINES)
+    selu_to_nchw_cut.launches += 1
+    return out
+
+
+def selu_to_nchw_older(z: torch.Tensor, how: Optional[str] = None
+                       ) -> torch.Tensor:
+    """``selu_to_nchw`` on the older kernels (``csrc/tail_constructs.cu``);
+    ``how`` picks the formulation (the module's header).  The tensors must
+    be 16-byte aligned.  Every launch adds one to
+    ``selu_to_nchw_older.launches``."""
+    if how is not None and how not in SELU_HOW:
+        raise ValueError(f"selu_to_nchw_older: {how!r} is not one of "
+                         f"{SELU_HOW}")
+    if z.device.type == "cpu":
+        return selu_to_nchw_reference(z)
+    _check("selu_to_nchw_older", z, "(C, F1, B, T)")
+    c, f1, b, t = z.shape
+    if min(c, f1, b, t) < 1 or c * f1 >= 2 ** 31:
+        raise ValueError(f"selu_to_nchw_older: unsupported shape "
+                         f"{tuple(z.shape)}")
     if z.data_ptr() % 16:
-        raise ValueError("selu_to_nchw: needs a 16-byte aligned tensor")
+        raise ValueError("selu_to_nchw_older: needs a 16-byte aligned "
+                         "tensor")
     ragged = t % (4 if z.dtype == torch.float32 else 8) != 0
     if how == "vector" and ragged:
-        raise ValueError(f"selu_to_nchw: T = {t} is no multiple of a "
+        raise ValueError(f"selu_to_nchw_older: T = {t} is no multiple of a "
                          "16-byte vector, which \"vector\" needs")
     staged = ragged if how is None else how == "staged"
     out = torch.empty((b, c, f1, t), dtype=z.dtype, device=z.device)
-    _call("selu_to_nchw", "aasist_selu_to_nchw",
+    _call("selu_to_nchw_older", "aasist_selu_to_nchw",
           [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
           out, z.data_ptr(), out.data_ptr(), c, f1, b, t, int(staged),
           fe._DTYPES[z.dtype])
-    selu_to_nchw.launches += 1
+    selu_to_nchw_older.launches += 1
     return out
 
 
 pool3_time.launches = 0
 pool3_time_major.launches = 0
 selu_to_nchw.launches = 0
+selu_to_nchw_cut.launches = 0
+selu_to_nchw_older.launches = 0

@@ -1,6 +1,7 @@
 """What block 0's tail costs alone: the max pool (1,3) in three
 formulations and the SELU + layout-changing store, as kernels of their own
-(``csrc/tail_constructs.cu``), beside stock PyTorch calls.
+(``csrc/tail_constructs.cu``, ``csrc/selu_nchw.cu``), beside stock PyTorch
+calls.
 
     python3 -m aasist_tpu_torch.tools.probe_tail_constructs  # one CUDA card
 
@@ -12,9 +13,14 @@ pre-pool size (B = 128, 32 x 23 x 21,489):
                          / ``pool_strided``), (B, 32, 23, T) -> (.., T // 3);
   pool time-major        ``pool3_time_major`` (``pool_sublane``),
                          (B, 32, T, 23) -> (B, 32, T // 3, 23);
-  selu_to_nchw           (``geg_write``) (32, 24, B, T) -> (B, 32, 24, T),
-                         a 16-byte vector a thread where T allows it, and
-                         staged through shared memory;
+  selu_to_nchw           (``geg_write``) (32, 24, B, T) -> (B, 32, 24, T)
+                         on ``csrc/selu_nchw.cu`` (a warp a row, output
+                         vectors realigned in registers), in turns with the
+                         older builds (a 16-byte vector a thread where T
+                         allows it, and staged through shared memory), the
+                         timing-only ``SNC_CUT`` build without SELU (the
+                         layout change alone: arithmetic against bytes),
+                         the plain version and F.selu + contiguous;
   F.max_pool2d           the one PyTorch call that computes the pools;
 
 and, at the first size only, that probe's XLA cases as stock PyTorch calls:
@@ -23,8 +29,11 @@ conv2 (``F.conv2d``, 32 -> 32, (2,3), padding (0,1)) on an NCHW input, on the
 time-major output (conv + transpose copy), and the transpose (2,3) alone.
 
 Each kernel is checked against its plain version first (the pools must be
-exact).  Every line has ms per call over two runs, the input's rate in GB/s
-and, for the kernels, the bound (the bytes read and written once).
+exact, the cut an exact copy); ``selu_to_nchw`` first also, in bf16 and
+f32, at a T of each residue mod 8, its output filled with NaN, and on bases
+off a 16-byte boundary (``selu_edge_cases``).  Every line has ms per call
+over two runs, the input's rate in GB/s and, for the kernels, the bound
+(the bytes read and written once).
 """
 
 from __future__ import annotations
@@ -37,6 +46,60 @@ from aasist_tpu_torch.tools import _common
 CHANNELS = 32
 F_Y = 23
 SIZES = ((64, 4608), (128, 21489))      # (B, T before the pool)
+# selu_to_nchw is SELU in f32 on both sides, rounded once: a bf16 ulp
+# (rtol 2^-7) or 1e-6 in f32 (chip_smoke.py:TOL_SELU_NCHW)
+SELU_TOL = {"float32": dict(atol=1e-6, rtol=1e-6),
+            "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+BUILDS = [("tail_constructs", None), ("selu_nchw", None),
+          ("selu_nchw", {"SNC_CUT": 1})]
+EDGE_SHAPE = (3, 5, 4)                  # (C, F1, B) of the edge cases
+EDGE_T = tuple(200 + r for r in range(8))       # every T mod 8
+EDGE_OFFSETS = (1, 3, 7)                # elements past a 16-byte boundary
+
+
+def selu_edge_cases(dname: str, tol: dict, seed: int = 3):
+    """(lines, failures) of ``selu_to_nchw`` at (C, F1, B) = EDGE_SHAPE
+    against its plain version under ``tol``: at a T of each residue mod 8,
+    its output filled with NaN first (an element it does not write fails),
+    and on inputs and outputs whose bases lie EDGE_OFFSETS elements past a
+    16-byte boundary (so that every row's input offset is misaligned
+    against its output's)."""
+    import torch
+
+    from aasist_tpu_torch.ops import tail_constructs as tc
+
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lines, fails = [], []
+    cases = [(t, 0, 0) for t in EDGE_T]
+    cases += [(EDGE_T[3], off, 0) for off in EDGE_OFFSETS]
+    cases += [(EDGE_T[5], 0, off) for off in EDGE_OFFSETS]
+    for t, zoff, ooff in cases:
+        shape = (*EDGE_SHAPE, t)
+        n = EDGE_SHAPE[0] * EDGE_SHAPE[1] * EDGE_SHAPE[2] * t
+        zs = torch.randn(n + 8, generator=gen, device="cuda").to(dtype)
+        z = zs[zoff:zoff + n].view(shape)
+        os_ = torch.full((n + 8,), float("nan"), dtype=dtype, device="cuda")
+        out = os_[ooff:ooff + n].view(shape[2], shape[0], shape[1], t)
+        got = tc.selu_to_nchw(z, out=out)
+        torch.cuda.synchronize()
+        ref = tc.selu_to_nchw_reference(z)
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = bool(torch.allclose(got.float(), ref.float(), **tol))
+        spill = bool(os_[:ooff].isnan().all()
+                     and os_[ooff + n:].isnan().all())
+        lines.append(f"T={t} (T mod 8 = {t % 8}) input +{zoff} output "
+                     f"+{ooff} elements: max|kernel-plain| {err:.3e}, "
+                     f"{'ok' if ok else 'FAILS'}; outside the output "
+                     f"{'untouched' if spill else 'WRITTEN'}")
+        if not ok:
+            fails.append(f"selu_to_nchw {dname} T={t} +{zoff}/+{ooff} "
+                         "disagrees with its plain version or leaves an "
+                         "element unwritten")
+        if not spill:
+            fails.append(f"selu_to_nchw {dname} T={t} +{zoff}/+{ooff} "
+                         "writes outside its output")
+    return lines, fails
 
 
 def main(argv=None) -> int:
@@ -52,9 +115,9 @@ def main(argv=None) -> int:
     from aasist_tpu_torch.ops import tail_constructs as tc
 
     card = _common.card_line()
-    lib = _build.load("tail_constructs")
-    print(f"built tail_constructs.cu: nvcc {lib.build_seconds:.1f} s",
-          flush=True)
+    for (src, defines), lib in zip(BUILDS, _build.load_all(BUILDS)):
+        print(f"built {src}.cu {defines or ''}: nvcc "
+              f"{lib.build_seconds:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt, c, f = torch.bfloat16, CHANNELS, F_Y
 
@@ -72,6 +135,12 @@ def main(argv=None) -> int:
                   f"{bound}  [{card}]", flush=True)
 
     with torch.inference_mode():
+        for dname in ("bfloat16", "float32"):
+            lines, fails = selu_edge_cases(dname, SELU_TOL[dname])
+            for line in lines:
+                print(f"selu_to_nchw edge {dname} {line}", flush=True)
+            if fails:
+                raise SystemExit("probe_tail_constructs: " + "; ".join(fails))
         for b, t in SIZES:
             tag = f"B={b} T={t}"
             v = t // 3
@@ -107,24 +176,32 @@ def main(argv=None) -> int:
             report(tag, {"pool time-major": lambda: tc.pool3_time_major(y)},
                    {"pool time-major": n_in}, {"pool time-major": pool_b})
             del y
-            # SELU + the layout change
+            # SELU + the layout change: the new kernel, the older builds
+            # (vector where T allows it), the timing-only cut without SELU
             z = rand(c, f + 1, b, t)
-            hows = [h for h in tc.SELU_HOW if h == "staged" or t % 8 == 0]
             ref = tc.selu_to_nchw_reference(z)
-            for how in hows:
-                if not torch.allclose(tc.selu_to_nchw(z, how).float(),
-                                      ref.float(), atol=1e-6, rtol=2.0 ** -7):
+            older = [h for h in tc.SELU_HOW if h == "staged" or t % 8 == 0]
+            runs = {"selu_to_nchw": lambda: tc.selu_to_nchw(z),
+                    **{f"older {h}": (lambda h=h: tc.selu_to_nchw_older(z, h))
+                       for h in older}}
+            for name, fn in runs.items():
+                if not torch.allclose(fn().float(), ref.float(),
+                                      **SELU_TOL["bfloat16"]):
                     raise SystemExit(
-                        f"probe_tail_constructs: selu_to_nchw {how} is more "
-                        f"than a bf16 ulp from its plain version, {tag}")
+                        f"probe_tail_constructs: {name} is more than a bf16 "
+                        f"ulp from its plain version, {tag}")
             del ref
-            fns = {f"selu {how}": (lambda h=how: tc.selu_to_nchw(z, h))
-                   for how in hows}
+            if not torch.equal(tc.selu_to_nchw_cut(z),
+                               z.permute(2, 0, 1, 3)):
+                raise SystemExit("probe_tail_constructs: the SNC_CUT build "
+                                 f"is no copy of the permuted input, {tag}")
             selu_b = _common.bytes_bound(z.numel(), z.numel(), "bfloat16")[0]
-            report(tag, {**fns, "plain selu+perm":
-                         lambda: tc.selu_to_nchw_reference(z)},
-                   dict.fromkeys([*fns, "plain selu+perm"], 2 * z.numel()),
-                   dict.fromkeys(fns, selu_b))
+            fns = {**runs, "cut (no SELU)": lambda: tc.selu_to_nchw_cut(z),
+                   "plain selu+perm": lambda: tc.selu_to_nchw_reference(z),
+                   "F.selu+contig": lambda: F.selu(z).permute(
+                       2, 0, 1, 3).contiguous()}
+            report(tag, fns, dict.fromkeys(fns, 2 * z.numel()),
+                   dict.fromkeys([*runs, "cut (no SELU)"], selu_b))
             if b != SIZES[0][0]:
                 del z
                 torch.cuda.empty_cache()

@@ -40,14 +40,18 @@ Phases, each of which raises (exit code 1) on failure:
      construct sets, the six stages (stock chains timed beside dma, fill
      and conv1) and the cast ladder on block0_pipe.cu and
      on the older kernel, each pair timed in turns, and the five timing
-     cuts of both in turns) and the tail kernels (three pools, SELU +
-     layout change, with the stock chain's time; both
-     types, one size with ragged tiles); then the step-cost kernel in its
+     cuts of both in turns) and the tail kernels (three pools; SELU +
+     layout change on selu_nchw.cu, first at a T of each residue mod 8
+     with its output filled with NaN and on bases off a 16-byte boundary,
+     then beside the older builds, timed in turns with them, its
+     timing-only cut and the stock chain; both types, one size with
+     ragged tiles); then the step-cost kernel in its
      six modes at B = 128, T = 7168 and at a ragged geometry (its TMA
      build, and the older build's four modes that TMA took over, timed in
-     turns with the stock call), and the chained-dot kernel at the twelve
-     dot shapes at a visible eps, each with a planted fault its gate must
-     tell (the phase's seconds printed);
+     turns with the stock call), and the chained-dot kernels (wgmma and
+     the older mma.sync) at the twelve dot shapes at a visible eps, each
+     with a planted fault its gate must tell, timed a dot in turns (the
+     phase's seconds printed);
   4. the main paths, each with every kernel wrapper's launch count reset
      just before and read just after, and checked: Scorer.from_config(
      "configs/AASIST.conf") with the pretrained weights (bf16, the
@@ -2102,8 +2106,9 @@ def main() -> int:
                                    "frontend_dot_wg",
                                    "frontend_f32", "frontend_ffma",
                                    "block0_f32", "tail_constructs",
-                                   "stepcost", "mma_shapes", "block0_pipe")]
-    entries += [("stepcost", sc.OLDER_DEFINES)]
+                                   "selu_nchw", "stepcost", "mma_shapes",
+                                   "mma_chain_wg", "block0_pipe")]
+    entries += [("stepcost", sc.OLDER_DEFINES), ("selu_nchw", tc.CUT_DEFINES)]
     # the frontend probe's builds of frontend_dot_wg.cu (its default among
     # the entries above)
     entries += [e for e in probe_frontend_variants.builds().values() if e[1]]
@@ -2113,7 +2118,8 @@ def main() -> int:
     libs = _build.load_all(entries)
     print(f"[build] {len(libs)} libraries in parallel ({len(variants)} of "
           f"fused_block0.cu, {1 + len(pipe)} of block0_pipe.cu, 2 of "
-          f"stepcost.cu, {len(probe_frontend_variants.builds())} of "
+          f"stepcost.cu, 2 of selu_nchw.cu, "
+          f"{len(probe_frontend_variants.builds())} of "
           f"frontend_dot_wg.cu, {len(heads)} of frontend_head_pipe.cu and "
           f"frontend_head.cu): {time.perf_counter() - t0:.1f} s")
     for (_, defines), lib in zip(entries, libs):
@@ -2925,7 +2931,15 @@ def main() -> int:
         del x, z, block
         torch.cuda.empty_cache()
 
-    # the tail kernels: the pools are exact, SELU + layout within an ulp
+    # the tail kernels: the pools are exact, SELU + layout within an ulp;
+    # selu_to_nchw first at a T of each residue mod 8, its output filled
+    # with NaN, and on bases off a 16-byte boundary
+    for dname in ("bfloat16", "float32"):
+        lines, fails = probe_tail_constructs.selu_edge_cases(
+            dname, TOL_SELU_NCHW[dname])
+        for line in lines:
+            print(f"[kernel] selu_to_nchw edge {dname} {line}")
+        check(not fails, "; ".join(fails))
     tail_results = {}
     for dname, b, t in [("bfloat16", 64, 4608), ("float32", 64, 4608),
                         ("bfloat16", 3, 5291), ("float32", 3, 5291),
@@ -2981,38 +2995,60 @@ def main() -> int:
                   f"plain {plain_ms:.4f} ms, F.max_pool2d (3,1) {lib_ms:.4f}"
                   f" ms, bound {bound:.4f} ms ({by})  [{card}]")
         del y, plain, got
+        # SELU + NCHW: the new kernel (csrc/selu_nchw.cu, any T) and the
+        # older builds (csrc/tail_constructs.cu: "vector" where T allows
+        # it, "staged"), each gated; then, in turns, with the timing-only
+        # SNC_CUT build (the layout change alone, an exact copy) and the
+        # stock chain
         zc = rand(32, 24, b, t)
         plain = tc.selu_to_nchw_reference(zc)
         tol = TOL_SELU_NCHW[dname]
-        hows = [None] + ([] if t % (16 // zc.element_size()) else ["staged"])
-        for how in hows:          # None: "vector" where T allows it
-            label = "selu_to_nchw" + (f" {how}" if how else "")
-            got = tc.selu_to_nchw(zc, how)
+        builds = {"selu_to_nchw": lambda: tc.selu_to_nchw(zc)}
+        for how in (["vector"] if t % (16 // zc.element_size()) == 0
+                    else []) + ["staged"]:
+            builds[f"selu_to_nchw_older {how}"] = (
+                lambda h=how: tc.selu_to_nchw_older(zc, h))
+        errs = {}
+        for label, fn in builds.items():
+            got = fn()
             torch.cuda.synchronize()
             check(tuple(got.shape) == (b, 32, 24, t) and got.dtype == dtype
                   and got.is_contiguous(),
                   f"{label}: output {tuple(got.shape)} {got.dtype}")
-            err = max_abs_diff(got, plain)
+            errs[label] = err = max_abs_diff(got, plain)
             print(f"[kernel] {label} {tag}: max|kernel-plain| = {err:.3e} "
                   f"(atol {tol['atol']}, rtol {tol['rtol']:.3e})")
             check(all(torch.allclose(g.float(), r.float(), **tol)
                       for g, r in zip(got.split(16), plain.split(16))),
                   f"{label} disagrees with its plain version, {tag}")
             del got
-            if timed:
-                ms = cuda_ms(lambda: tc.selu_to_nchw(zc, how), 10)
-                plain_ms = cuda_ms(lambda: tc.selu_to_nchw_reference(zc), 5)
+        if timed:
+            check(torch.equal(tc.selu_to_nchw_cut(zc),
+                              zc.permute(2, 0, 1, 3)),
+                  f"selu_to_nchw's SNC_CUT build is no copy, {tag}")
+            runs = two_runs({
+                **builds, "cut": lambda: tc.selu_to_nchw_cut(zc),
                 # the stock chain: F.selu in the working type, then the
                 # NCHW copy
-                lib_ms = cuda_ms(lambda: F.selu(zc).permute(
-                    2, 0, 1, 3).contiguous(), 10)
-                bound, by = bytes_bound(zc.numel(), zc.numel(), dname)
+                "stock": lambda: F.selu(zc).permute(2, 0, 1, 3)
+                .contiguous()}, 10)
+            ms = {k: sum(r) / 2 for k, r in runs.items()}
+            plain_ms = cuda_ms(lambda: tc.selu_to_nchw_reference(zc), 5)
+            bound, by = bytes_bound(zc.numel(), zc.numel(), dname)
+            for label in builds:
                 tail_results[(label, dname, b)] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=lib_ms)
-                print(f"[kernel] {label} {tag}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, F.selu + contiguous {lib_ms:.4f} "
-                      f"ms, bound {bound:.4f} ms ({by})  [{card}]")
+                    max_abs_err=errs[label], ms=ms[label], runs=runs[label],
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=ms["stock"])
+            tail_results[("selu_to_nchw", dname, b)].update(
+                cut_ms=ms["cut"], older_ms={
+                    label.rsplit(" ", 1)[1]: ms[label] for label in builds
+                    if label != "selu_to_nchw"})
+            print(f"[kernel] selu_to_nchw {tag} (in turns): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f"; plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}); new at {100 * bound / ms['selu_to_nchw']:.1f} % "
+                  f"of the bound  [{card}]")
         del plain
         del zc
         torch.cuda.empty_cache()
@@ -3081,19 +3117,38 @@ def main() -> int:
         del x, w, lib_fns
         torch.cuda.empty_cache()
 
-    # the chained-dot kernel at every dot shape: checked at a visible eps
-    # (tools/_common.py:mma_readings), timed a dot at the probe's eps
-    mma_results = {}
+    # the chained-dot kernels at every dot shape: the wgmma kernel and the
+    # older mma.sync one, each checked at a visible eps with its planted
+    # fault (tools/_common.py:mma_readings), then timed a dot in turns at
+    # the probe's eps
+    mma_results = {"mma_chain": {}, "mma_chain_older": {}}
     with torch.inference_mode():
         for name in mm.SHAPES:
-            text, fails, err = probe_mxu_shapes.check(name)
-            print(f"[kernel] mma_chain {name}: {text}")
-            check(not fails, "mma_chain: " + "; ".join(fails))
+            errs = {}
+            for label, fn in (("mma_chain", mm.mma_chain),
+                              ("mma_chain_older", mm.mma_chain_older)):
+                text, fails, errs[label] = probe_mxu_shapes.check(name, fn)
+                print(f"[kernel] {label} {name}: {text}")
+                check(not fails, f"{label}: " + "; ".join(fails))
             r = probe_mxu_shapes.measure(name, probe_mxu_shapes.N_DOTS, 5)
-            mma_results[name] = dict(max_abs_err=err, **r)
-            print(f"[kernel] mma_chain {name}: {1e3 * r['ms']:.3f} us a dot "
-                  f"({r['tflops']:.1f} TF/s useful, {r['tflops_padded']:.1f}"
-                  f" padded), plain {1e3 * r['plain_ms']:.3f} us, torch.mm "
+            common = dict(plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                          n_dots=r["n_dots"])
+            mma_results["mma_chain"][name] = dict(
+                max_abs_err=errs["mma_chain"], ms=r["ms"], runs=r["runs"],
+                launch_ms=r["launch_ms"], older_ms=r["older_ms"],
+                cluster=r["cluster"], **common)
+            mma_results["mma_chain_older"][name] = dict(
+                max_abs_err=errs["mma_chain_older"], ms=r["older_ms"],
+                runs=r["older_runs"], launch_ms=r["older_launch_ms"],
+                **common)
+            print(f"[kernel] mma_chain {name} (in turns): "
+                  f"{1e3 * r['ms']:.3f} us a dot ({r['launch_ms']:.3f} ms a "
+                  f"launch of {r['n_dots']}, cluster {r['cluster']}, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound), "
+                  f"older {1e3 * r['older_ms']:.3f} us "
+                  f"({r['older_launch_ms']:.3f} ms), plain "
+                  f"{1e3 * r['plain_ms']:.3f} us, torch.mm "
                   f"{1e3 * r['library_ms']:.3f} us, bound "
                   f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']})  [{card}]")
 
@@ -3384,9 +3439,11 @@ def main() -> int:
               "pool3_time": tc.pool3_time,
               "pool3_time_major": tc.pool3_time_major,
               "selu_to_nchw": tc.selu_to_nchw,
+              "selu_to_nchw_older": tc.selu_to_nchw_older,
               "stepcost": sc.stepcost,
               "stepcost_older": sc.stepcost_older,
-              "mma_chain": mm.mma_chain}
+              "mma_chain": mm.mma_chain,
+              "mma_chain_older": mm.mma_chain_older}
     # each probe with the kernels it must launch; every count is set to 0
     # just before a probe and read just after it, and a kernel's launches
     # are the sum over the probes that run it
@@ -3412,9 +3469,10 @@ def main() -> int:
                                        "fused_block0_epi_older")),
                        (probe_tail_constructs, ("pool3_time",
                                                 "pool3_time_major",
-                                                "selu_to_nchw")),
+                                                "selu_to_nchw",
+                                                "selu_to_nchw_older")),
                        (probe_stepcost, ("stepcost", "stepcost_older")),
-                       (probe_mxu_shapes, ("mma_chain",))):
+                       (probe_mxu_shapes, ("mma_chain", "mma_chain_older"))):
         pname = probe.__name__.rsplit(".", 1)[-1]
         print(f"[probe] {pname} --iters 3")
         for fn in probed.values():
@@ -3635,28 +3693,31 @@ def main() -> int:
                 for c, v in cut_results.items()}
             entry["cuts_launches"] = probe_launches[cut]
         kernels.append(entry)
-    for name, label, where, shape, real in (
-            ("pool3_time", "pool3_time staged",
+    for name, label, src, where, shape, real in (
+            ("pool3_time", "pool3_time staged", "tail_constructs",
              "tools/probe_tail_constructs.py:58",
              [64, 32, 23, 4608], [128, 32, 23, 21489]),
-            ("pool3_time_major", "pool3_time_major",
+            ("pool3_time_major", "pool3_time_major", "tail_constructs",
              "tools/probe_tail_constructs.py:68",
              [64, 32, 4608, 23], [128, 32, 21489, 23]),
-            ("selu_to_nchw", "selu_to_nchw",
+            ("selu_to_nchw", "selu_to_nchw", "selu_nchw",
              "tools/probe_tail_constructs.py:111",
+             [32, 24, 64, 4608], [32, 24, 128, 21489]),
+            ("selu_to_nchw_older", "selu_to_nchw_older staged",
+             "tail_constructs", "tools/probe_tail_constructs.py:111",
              [32, 24, 64, 4608], [32, 24, 128, 21489])):
         entry = {
             "name": name, "route": "cuda",
-            "source": "aasist_tpu_torch/csrc/tail_constructs.cu",
+            "source": f"aasist_tpu_torch/csrc/{src}.cu",
             "replaces": where, "launches": probe_launches[name],
             **tail_results[(label, "bfloat16", 64)], "dtype": "bfloat16",
             "shape": shape, "float32": tail_results[(label, "float32", 64)],
             "block0_size": {"shape": real,
                             **tail_results[(label, "bfloat16", 128)]}}
-        if name == "selu_to_nchw":
-            entry["variant"] = "vector (staged at block 0's size)"
-            entry["staged"] = {
-                d: tail_results[("selu_to_nchw staged", d, 64)]
+        if name == "selu_to_nchw_older":
+            entry["variant"] = "staged (any T)"
+            entry["vector"] = {
+                d: tail_results[("selu_to_nchw_older vector", d, 64)]
                 for d in ("bfloat16", "float32")}
         if name == "pool3_time":
             entry["variant"] = "staged"
@@ -3675,8 +3736,11 @@ def main() -> int:
              step_results["stepcost"]),
             ("stepcost_older", "nop", "stepcost",
              "tools/probe_stepcost.py:53", step_results["stepcost_older"]),
-            ("mma_chain", "k128_m128", "mma_shapes",
-             "tools/probe_mxu_shapes.py:50", mma_results)):
+            ("mma_chain", "k128_m128", "mma_chain_wg",
+             "tools/probe_mxu_shapes.py:50", mma_results["mma_chain"]),
+            ("mma_chain_older", "k128_m128", "mma_shapes",
+             "tools/probe_mxu_shapes.py:50",
+             mma_results["mma_chain_older"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aasist_tpu_torch/csrc/{src}.cu", "replaces": where,

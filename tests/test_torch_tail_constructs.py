@@ -10,10 +10,17 @@ max of three stride-3 slices (``pool_strided_kernel``), and
 ``tools/fused_stack.py:_selu`` in f32 followed by the transpose
 (``geg_kernel``).  A max of stored values is exact: the pools are held at 0.
 SELU differs by the exponential's last bits: 1e-6 in f32, one bf16 ulp in
-bf16.
+bf16.  ``selu_to_nchw`` (``csrc/selu_nchw.cu``) and ``selu_to_nchw_older``
+(``csrc/tail_constructs.cu``) take the same plain version on the CPU: the
+JAX comparison runs once, and one test asserts that both names dispatch to
+it.  A numpy model of ``csrc/selu_nchw.cu``'s index maps (aligned vectors,
+the neighbour from the next lane, the realignment, the head and tail
+elements) moves rows of every alignment and checks each output element is
+written once, with nothing outside the output.
 """
 
 import os
+import re
 import sys
 
 import numpy as np
@@ -22,6 +29,7 @@ import torch
 
 import jax.numpy as jnp
 
+from aasist_tpu_torch.ops import _build
 from aasist_tpu_torch.ops import tail_constructs as tc
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -185,7 +193,7 @@ def test_staged_pool_needs_alignment_and_a_known_formulation():
     with pytest.raises(ValueError, match="16-byte aligned"):
         tc.pool3_time(_FakeCuda(x, ptr=4), "staged")
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tc.selu_to_nchw(_FakeCuda(x, ptr=4))
+        tc.selu_to_nchw_older(_FakeCuda(x, ptr=4))
     with pytest.raises(ValueError, match="not one of"):
         tc.pool3_time(x, "reshape")
     with pytest.raises(ValueError, match="not one of"):
@@ -194,21 +202,203 @@ def test_staged_pool_needs_alignment_and_a_known_formulation():
 
 @pytest.mark.parametrize("how", [None, *tc.SELU_HOW])
 def test_selu_to_nchw_formulations_are_one_function(how):
-    """On the CPU every ``how`` is the plain version."""
+    """On the CPU every ``how`` of the older kernels is the plain
+    version."""
     z, _ = _pair(6, (3, 4, 2, 30), "bfloat16")
-    before = tc.selu_to_nchw.launches
-    torch.testing.assert_close(tc.selu_to_nchw(z, how),
+    before = tc.selu_to_nchw_older.launches
+    torch.testing.assert_close(tc.selu_to_nchw_older(z, how),
                                tc.selu_to_nchw_reference(z), rtol=0, atol=0)
-    assert tc.selu_to_nchw.launches == before
+    assert tc.selu_to_nchw_older.launches == before
 
 
 @pytest.mark.parametrize("dtype,t", [(torch.float32, 30),
                                      (torch.bfloat16, 36)],
                          ids=["float32", "bfloat16"])
 def test_selu_to_nchw_vector_needs_whole_vectors(dtype, t):
-    """"vector" moves 16 bytes a thread: 4 float32 or 8 bfloat16 values."""
+    """The older "vector" moves 16 bytes a thread: 4 float32 or 8 bfloat16
+    values."""
     x = _FakeCuda(torch.zeros((3, 4, 2, t), dtype=dtype))
     with pytest.raises(ValueError, match="no multiple of a 16-byte vector"):
-        tc.selu_to_nchw(x, "vector")
+        tc.selu_to_nchw_older(x, "vector")
     with pytest.raises(ValueError, match="not one of"):
-        tc.selu_to_nchw(x, "direct")
+        tc.selu_to_nchw_older(x, "direct")
+
+
+# ------------------------------- selu_to_nchw, its cut and older builds
+def test_both_selu_wrappers_dispatch_to_the_plain_version(monkeypatch):
+    """On CPU tensors ``selu_to_nchw`` and ``selu_to_nchw_older`` both
+    return ``selu_to_nchw_reference``'s result and count no launch: the JAX
+    comparison above holds for both."""
+    calls = []
+
+    def plain(z):
+        calls.append(tuple(z.shape))
+        return z
+    monkeypatch.setattr(tc, "selu_to_nchw_reference", plain)
+    z, _ = _pair(7, (3, 4, 2, 30), "bfloat16")
+    for fn in (tc.selu_to_nchw, tc.selu_to_nchw_older):
+        before = fn.launches
+        assert fn(z) is z and fn.launches == before
+    assert calls == [(3, 4, 2, 30)] * 2
+
+
+def test_selu_to_nchw_out_and_cut_on_the_cpu():
+    """``out`` is written in place with the plain version; the cut is the
+    permuted copy; neither counts a launch."""
+    z, _ = _pair(8, (3, 4, 2, 37), "float32")
+    out = torch.full((2, 3, 4, 37), float("nan"))
+    before = (tc.selu_to_nchw.launches, tc.selu_to_nchw_cut.launches)
+    assert tc.selu_to_nchw(z, out=out) is out
+    torch.testing.assert_close(out, tc.selu_to_nchw_reference(z), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(tc.selu_to_nchw_cut(z),
+                               z.permute(2, 0, 1, 3), rtol=0, atol=0)
+    assert (tc.selu_to_nchw.launches, tc.selu_to_nchw_cut.launches) == before
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 3, 4, 30), torch.float32),
+                                         ((2, 3, 4, 37), torch.bfloat16)],
+                         ids=["shape", "dtype"])
+def test_selu_to_nchw_out_guard(shape, dtype):
+    z = _FakeCuda(torch.zeros((3, 4, 2, 37)))
+    out = _FakeCuda(torch.zeros(shape, dtype=dtype))
+    with pytest.raises(ValueError, match="out must be"):
+        tc.selu_to_nchw(z, out=out)
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("name,build", [
+    ("selu_to_nchw", ("selu_nchw", None)),
+    ("selu_to_nchw_cut", ("selu_nchw", {"SNC_CUT": 1})),
+    ("selu_to_nchw_older", ("tail_constructs", None))])
+def test_selu_wrappers_launch_their_builds(monkeypatch, name, build):
+    """``selu_to_nchw`` asks for ``csrc/selu_nchw.cu``, its cut for the
+    ``SNC_CUT`` build, ``selu_to_nchw_older`` for
+    ``csrc/tail_constructs.cu``; none counts a launch when the build stops
+    it.  The new kernel takes bases at any 2-byte alignment."""
+    seen = []
+
+    def load(src, defines=None):
+        seen.append((src, defines))
+        raise _Built
+    empty = torch.empty
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype, device:
+                        empty(shape, dtype=dtype))
+    x = torch.zeros((3, 4, 2, 30), dtype=torch.bfloat16)
+    fn = getattr(tc, name)
+    before = fn.launches
+    with pytest.raises(_Built):
+        fn(_FakeCuda(x, ptr=2 if name != "selu_to_nchw_older" else None))
+    assert seen == [build] and fn.launches == before
+    assert tc.CUT_DEFINES == {"SNC_CUT": 1}
+
+
+def test_probe_builds_are_the_wrappers():
+    """The tail probe builds what the wrappers launch, the cut included."""
+    from aasist_tpu_torch.tools import probe_tail_constructs as ptc
+
+    assert ptc.BUILDS == [("tail_constructs", None), ("selu_nchw", None),
+                          ("selu_nchw", tc.CUT_DEFINES)]
+    assert sorted({t % 8 for t in ptc.EDGE_T}) == list(range(8))
+    assert ptc.SELU_TOL["float32"] == dict(atol=1e-6, rtol=1e-6)
+    assert ptc.SELU_TOL["bfloat16"] == dict(atol=1e-6, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("what,dtype,shape,contig,exc,match", GUARDS,
+                         ids=[g[0] for g in GUARDS])
+def test_older_selu_guards_raise(what, dtype, shape, contig, exc, match):
+    x = _FakeCuda(torch.zeros(shape or (3, 4, 2, 30), dtype=dtype), contig)
+    with pytest.raises(exc, match=match):
+        tc.selu_to_nchw_older(x)
+
+
+# ------------------------------------- a numpy model of selu_nchw.cu
+SNC = (_build.CSRC / "selu_nchw.cu").read_text()
+SK = {m[1]: int(m[2]) for m in re.finditer(r"constexpr int (\w+) = (\d+);",
+                                           SNC)}
+
+
+def test_selu_source_constants():
+    assert SK["U"] == 4 and SK["THREADS"] == 256
+    assert "constexpr int PASS = 32 * U;" in SNC
+    assert "const I dp = in0 - so + VEC;" in SNC
+    assert "const I nvo = (so + t + VEC - 1) / VEC;" in SNC
+
+
+def model_rows(z, esize, z_off, o_off):
+    """``selu_nchw_kernel``'s index maps on flat buffers whose bases lie
+    z_off and o_off elements past a 16-byte boundary (the kernel's layout
+    change without SELU): every row's passes of 32 U output vectors, lane
+    L's aligned input vectors and its neighbour's (lane 0's next one for
+    lane 31), the realignment by (input - output offset) mod 16 bytes, and
+    head and tail elements stored one by one.  Returns the output and
+    every element's store count."""
+    vec, u_, pas = 16 // esize, SK["U"], 32 * SK["U"]
+    c, f1, b, t = z.shape
+    cf, n = c * f1, z.size
+    zb = np.full(z_off + n + 2 * vec, np.nan)
+    zb[z_off:z_off + n] = z.ravel()
+    ob = np.full(o_off + n + 2 * vec, np.nan)
+    count = np.zeros_like(ob, np.int64)
+    lo, hi = z_off, z_off + n
+    vlo, vhi = (z_off + vec - 1) // vec, hi // vec
+
+    def load(iv):
+        if vlo <= iv < vhi:
+            return zb[iv * vec:iv * vec + vec].copy()
+        e = np.zeros(vec)
+        for k in range(vec):
+            if lo <= iv * vec + k < hi:
+                e[k] = zb[iv * vec + k]
+        return e
+    for r in range(cf * b):
+        bb, q = r // cf, r % cf
+        in0, out0 = z_off + (q * b + bb) * t, o_off + r * t
+        so = out0 % vec
+        dp = in0 - so + vec
+        qd, sb = dp // vec - 1, (dp % vec) * esize
+        ao, nvo = (out0 - so) // vec, (so + t + vec - 1) // vec
+        for base in range(0, nvo, pas):
+            cur = [[load(qd + base + 32 * u + lane)
+                    if base + 32 * u + lane <= nvo else np.zeros(vec)
+                    for lane in range(32)] for u in range(u_)]
+            extra = (load(qd + base + pas) if base + pas <= nvo
+                     else np.zeros(vec))
+            for u in range(u_):
+                for lane in range(32):
+                    src = (lane + 1) & 31
+                    nxt = ((cur[u + 1][0] if u + 1 < u_ else extra)
+                           if src == 0 else cur[u][src])
+                    v = base + 32 * u + lane
+                    if v >= nvo:
+                        continue
+                    o = np.concatenate([cur[u][lane], nxt])[
+                        sb // esize:sb // esize + vec]
+                    e0 = (ao + v) * vec
+                    for k in range(vec):
+                        if out0 <= e0 + k < out0 + t:
+                            ob[e0 + k] = o[k]
+                            count[e0 + k] += 1
+    return ob, count
+
+
+@pytest.mark.parametrize("esize", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("t", [1, 7, 9, 200, 203, 300],
+                         ids=lambda t: f"T={t}")
+def test_model_of_the_kernel_moves_every_row(esize, t):
+    """At every T mod 8 and bases off a 16-byte boundary, each output
+    element is stored once, with its input's value, and nothing around the
+    output is touched."""
+    vec = 16 // esize
+    z = np.random.default_rng(t).normal(size=(2, 3, 2, t))
+    for z_off, o_off in [(0, 0), (1, 0), (0, vec - 1), (vec - 1, 1)]:
+        ob, count = model_rows(z, esize, z_off, o_off)
+        n = z.size
+        assert (count[o_off:o_off + n] == 1).all()
+        assert count[:o_off].sum() == 0 and count[o_off + n:].sum() == 0
+        np.testing.assert_array_equal(
+            ob[o_off:o_off + n].reshape(2, 2, 3, t), z.transpose(2, 0, 1, 3))
