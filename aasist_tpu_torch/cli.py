@@ -214,7 +214,7 @@ def load_model_weights(model: torch.nn.Module, model_path) -> None:
 
 
 @contextlib.contextmanager
-def _full_f32():
+def full_f32():
     """cuDNN convolutions and cuBLAS matmuls in full f32 (no TF32), as
     the config asks of an f32 model, restored afterwards."""
     saved = (torch.backends.cudnn.allow_tf32,
@@ -304,7 +304,7 @@ def _run(args, ranks) -> int:
         print(f"no. model params: {count_params(model)}")
     loaders = build_loaders(cfg, device.type, args.seed, eval_only=args.eval,
                             rank=ranks.rank, world=ranks.world)
-    precision = _full_f32 if dtype == "float32" else contextlib.nullcontext
+    precision = full_f32 if dtype == "float32" else contextlib.nullcontext
 
     if not args.eval:
         results = run_training(cfg, model.to(device), loaders, run_dir,

@@ -61,12 +61,47 @@ B0_GATE_STAGE_MEAN = 1e-4
 B0_FAULT_FACTOR = 5     # a planted fault must read this many gates
 
 
+# Rows of the 512-utterance e2e goldens (seed-99 corpus) whose score turns
+# on a near-tie of node order inside the model, each with its f32 reading
+# in the other order; the parity gates hold such a row by id to the golden
+# or to that reading, every other row to the golden.
+#   AASIST's LA_E_9900077: the sigmoid scores of pool_hS1's 3rd and 4th
+# kept nodes are equal in f32 (0.5312195) and 1.06e-7 apart in float64; the
+# two branches are joined by an element-wise max over nodes in rank order,
+# so the order of that pair moves the score by 7.1e-3.  The torch reference
+# that made the golden took one order (-6.7885728), the JAX package and the
+# port the other (tests/test_torch_eval_pipeline.py::
+# test_the_512_goldens_utterance_77_is_a_node_order_tie recomputes both).
+NODE_ORDER_TIES = {"LA99": {"LA_E_9900077": -6.7956948}}
+#   RawGAT-ST's LA_E_9900049: pool_ST's 4th and 5th kept nodes score 6.1e-9
+# apart in float64 (below an f32 ulp there), and proj_ST / out_layer weigh
+# the 7 kept nodes by rank, so their order moves the score by 1.83e-3.  The
+# torch reference, the JAX package and the port on the CPU take one order
+# (golden 0.1959048); the port's f32 forward with that pair swapped gives
+# 0.1940752, which an H100 reads in f32 bit for bit
+# (tests/test_torch_zoo_eval.py::
+# test_the_rawgatst_goldens_utterance_49_is_a_node_order_tie).
+ZOO_NODE_ORDER_TIES = {"RawGATST": {"LA_E_9900049": 0.19407523}}
+
+
 def need_card(tool: str) -> None:
     """Exit non-zero unless a CUDA card is present."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit(f"{tool}: needs a CUDA card")
+
+
+def tool_device(tool: str, device: str):
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises, as the CLI does."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{tool}: no CUDA device is available; pass "
+                           "--device cpu to run on the CPU")
+    return device
 
 
 def card_line() -> str:

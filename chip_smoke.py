@@ -73,7 +73,11 @@ Phases, each of which raises (exit code 1) on failure:
      alone, and torch.profiler breakdowns of one such batch by CUDA kernel
      with the frontend kernel and with the stack (printed, not gated; the
      whole tables go to chiprun_out/profile_bf16_b128.txt and
-     profile_bf16_b128_stack.txt);
+     profile_bf16_b128_stack.txt); then aasist_tpu_torch.tools.
+     profile_stages's cumulative cuts (frontend, blocks 0-5, the graph
+     stack) on the frontend and stack routes, launch counts checked, the
+     full cut's logits bit for bit the forward's, its ms beside the
+     forward's (not gated);
   6. the eval pipeline through its entry point on the card: cli.main([
      "--config", C, "--eval"]) with configs/AASIST.conf and the pretrained
      weights, four ways (f32 without kernels, f32 with the CUDA-core
@@ -86,7 +90,12 @@ Phases, each of which raises (exit code 1) on failure:
      to the JAX package's reading of the other order), the kernels' scores to the f32 ones and the bf16 ones to a Scorer's
      of the same rows, the reports to what main printed; utt/s of each way
      over the 512 utterances, decode to metrics (the 512 corpus is kept
-     for phase 8, the 48 for phase 10);
+     for phase 8, the 48 for phase 10); then the repo's tools on those
+     corpora: preflight_la on the 48 (no problem), verify_reference_parity
+     in its synthetic mode on the 48 and with --big on the 512 for the
+     five architectures (each must pass; no kernel on its f32 stock
+     route), bench_loader and bench_decode with their reps cut (printed;
+     all in chiprun_out/tools.json with phase 5's cuts);
   7. the nine probes through their entry points
      (aasist_tpu_torch.tools.probe_frontend_variants, probe_fe_fix,
      probe_feb0_ablate, probe_b0_constructs, probe_b0_ablate, probe_b0_epi,
@@ -164,6 +173,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "aasist_tpu_torch").is_dir():
+    sys.exit(f"no aasist_tpu_torch package beside {__file__}: run it from a "
+             "checkout of the repository")
+sys.path.insert(0, str(ROOT))
+from aasist_tpu_torch.tools._common import (  # noqa: E402
+    NODE_ORDER_TIES, ZOO_NODE_ORDER_TIES)
 
 # Tolerances.  f32: the JAX kernel's own gate (tests/test_fused_frontend.py).
 # bf16 frontend: the plain chain rounds to bf16 after the conv, the BN and
@@ -340,16 +355,10 @@ EVAL_CORPORA = {
                   audio_format="wav"), "e2e_diff_big_AASIST.npz"),
 }
 TOL_EVAL_SCORES = 1e-4
-# Rows of a golden whose score turns on a near-tie inside the model, each
-# with the JAX package's f32 reading of it on the CPU.  LA_E_9900077: the
-# sigmoid scores of pool_hS1's 3rd and 4th kept nodes are equal in f32
-# (0.5312195) and 1.06e-7 apart in float64; the two branches are joined by
-# an element-wise max over nodes in rank order, so the order of that pair
-# moves the score by 7.1e-3.  The torch reference that made the golden took
-# one order (-6.7885728), the JAX package and the port the other
-# (tests/test_torch_eval_pipeline.py::
-# test_the_512_goldens_utterance_77_is_a_node_order_tie recomputes both).
-NODE_ORDER_TIES = {"LA99": {"LA_E_9900077": -6.7956948}}
+# Rows of a golden whose score turns on a near-tie of node order inside the
+# model, each with its reading in the other order, are held by id to either
+# (tools/_common.py: NODE_ORDER_TIES for phase 6's corpora,
+# ZOO_NODE_ORDER_TIES for phase 8's architectures, each with its reason).
 # bf16 scores against f32 ones: PERF.md section 2's 0.1 was set on logits of
 # magnitude ~2 (5 %); a bf16 forward's error is relative, and the corpora's
 # scores reach -7.6, so the allowance is 5 % of max(|f32|, 2).  The pipeline
@@ -655,6 +664,121 @@ def eval_pipeline(card: str, path_kernels: dict, keep=()) -> dict:
     return launches
 
 
+# profile_stages in phase 5: each Scorer mode's route and the kernel
+# wrappers its cuts must launch (and no other)
+STAGE_PATHS = {"frontend kernel": ("frontend", {"fused_frontend_dot_plain"}),
+               "stack": ("stack", {"fused_frontend_dot_padded",
+                                   "block0_pipe"})}
+
+
+def profile_stages_phase(card: str, path_kernels: dict, model, xb, fwd,
+                         set_mode) -> dict:
+    """Phase 5's per-stage cuts: ``tools/profile_stages.py:profile`` on the
+    Scorer's bf16 model at batch 128, on the frontend and stack routes,
+    launch counts set to 0 just before and read just after; the full cut's
+    logits must equal the model's own forward's bit for bit, and its ms is
+    printed beside the phase's forward ms (no gate on the times)."""
+    import numpy as np
+    import torch
+
+    from aasist_tpu_torch.tools import profile_stages
+
+    out, t0 = {}, time.perf_counter()
+    for mode, (path, kernels) in STAGE_PATHS.items():
+        set_mode(mode)
+        torch.cuda.synchronize()
+        for fn in path_kernels.values():
+            fn.launches = 0
+        rows, logits = profile_stages.profile(model, xb, path)
+        counts = {k: fn.launches for k, fn in path_kernels.items()
+                  if fn.launches}
+        with torch.inference_mode():
+            want = model(xb)[1]
+        for line in profile_stages.report(rows, len(xb), card):
+            print(f"[stages] {path}: {line}")
+        print(f"[stages] {path}: the full cut {rows[-1].ms:.3f} ms against "
+              f"the phase's forward {np.mean(fwd[mode]):.3f} ms; launches "
+              f"{counts}  [{card}]")
+        check(set(counts) == kernels,
+              f"profile_stages {path}: launched {counts}, want {kernels}")
+        check(torch.equal(logits, want),
+              f"profile_stages {path}: the full cut's logits differ from "
+              "the forward's")
+        out[path] = {"batch": len(xb), "dtype": "bfloat16",
+                     "cuts_ms": {r.name: r.ms for r in rows},
+                     "forward_ms": float(np.mean(fwd[mode])),
+                     "launches": counts}
+    print(f"[stages] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tools_phase(card: str, path_kernels: dict, out: Path) -> dict:
+    """Phase 6's tools on its corpora under ``out`` (LA77, LA99; none
+    made here): preflight_la on LA77 (0 problems);
+    verify_reference_parity in synthetic mode on LA77 and with --big on
+    LA99 for the five architectures (each "pass": true, f32 on the stock
+    route: no kernel launched); bench_loader and bench_decode on LA77 with
+    their reps cut (printed, not gated).  Returns their readings."""
+    import contextlib
+    import io
+
+    import torch
+
+    from aasist_tpu_torch.tools import (bench_decode, bench_loader,
+                                        preflight_la,
+                                        verify_reference_parity as vrp)
+
+    def run(tool, argv):
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        for fn in path_kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = tool.main(argv)
+        wall = time.perf_counter() - t0
+        name = tool.__name__.rsplit(".", 1)[-1]
+        counts = {k: fn.launches for k, fn in path_kernels.items()
+                  if fn.launches}
+        check(rc == 0, f"{name} {argv}: returned {rc}")
+        check(not counts, f"{name}: launched {counts} on the stock route")
+        return printed.getvalue().strip().splitlines()[-1], wall
+
+    la77, la99 = out / "LA77", out / "LA99"
+    lines = []
+    t0 = time.perf_counter()
+    problems = preflight_la.preflight(str(la77), out=lines.append)
+    print(f"[tools] preflight_la LA77: {len(problems)} problems, "
+          f"{len(lines)} checks, {time.perf_counter() - t0:.1f} s")
+    check(problems == [], f"preflight_la LA77: {problems}")
+    report = {"preflight_problems": problems}
+    for mode, argv in (("synthetic", ["--corpus", str(la77)]),
+                       ("big", ["--big", "--corpus", str(la99)])):
+        line, wall = run(vrp, argv + ["--out_dir", str(out / "parity")])
+        verdict = json.loads(line)
+        per = verdict.get("archs", {"AASIST": verdict})
+        for arch, v in per.items():
+            ties = {u: (t["held_to"], round(t["score"], 7))
+                    for u, t in v.get("node_order_ties", {}).items()}
+            print(f"[tools] verify_reference_parity {mode} {arch}: pass "
+                  f"{v['pass']}, max|d| {v['max_abs_score_diff']:.3e} (tol "
+                  f"{v['score_tol']}), EER {v['eer_pct']!r} (golden "
+                  f"{v['golden_eer_pct']!r}), min t-DCF {v['min_tdcf']!r}"
+                  + (f", ties held {ties}" if ties else ""))
+            check(v["pass"], f"verify_reference_parity {mode} {arch}")
+        print(f"[tools] verify_reference_parity {mode}: {wall:.1f} s  "
+              f"[{card}]")
+        report[f"parity_{mode}"] = {"verdict": verdict, "seconds": wall}
+    for tool, argv in ((bench_loader, [str(la77), "16", "5"]),
+                       (bench_decode, [str(la77 / "ASVspoof2019_LA_eval"
+                                           / "flac"), "5"])):
+        line, wall = run(tool, argv)
+        name = tool.__name__.rsplit(".", 1)[-1]
+        print(f"[tools] {name}: {line}; {wall:.1f} s")
+        report[name] = line
+    return report
+
+
 # The zoo (phase 8): each architecture's stock config, the golden holding
 # its weights (the reference's seeded state dict, sd__*) and its f32 outputs,
 # with the JAX package's tolerances on (logits, hidden) (tests/
@@ -669,17 +793,6 @@ ZOO = {
     "AASIST-Robust": ("AASIST-Robust", None, None),
 }
 ZOO_ROBUST_SEED = 8
-# Rows of a zoo's 512-utterance golden whose score turns on a near-tie of
-# node order, each with its reading in the other order, as NODE_ORDER_TIES.
-# RawGAT-ST's LA_E_9900049: pool_ST's 4th and 5th kept nodes score 6.1e-9
-# apart in float64 (below an f32 ulp there), and proj_ST / out_layer weigh
-# the 7 kept nodes by rank, so their order moves the score by 1.83e-3.  The
-# torch reference, the JAX package and the port on the CPU take one order
-# (golden 0.1959048); the port's f32 forward with that pair swapped gives
-# 0.1940752, which an H100 reads in f32 bit for bit
-# (tests/test_torch_zoo_eval.py::
-# test_the_rawgatst_goldens_utterance_49_is_a_node_order_tie).
-ZOO_NODE_ORDER_TIES = {"RawGATST": {"LA_E_9900049": 0.19407523}}
 # Scorer ways: (bf16, use_fused_frontend, the kernel wrapper it launches
 # once a batch, None for none); RawNet2 has no frontend kernel.
 ZOO_WAYS = {
@@ -1512,7 +1625,6 @@ def worker(argv) -> int:
     import numpy as np
     import torch
 
-    sys.path.insert(0, str(ROOT))
     kernels = path_kernel_fns()
     for fn in kernels.values():
         fn.launches = 0
@@ -2017,10 +2129,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
-    if not (ROOT / "aasist_tpu_torch").is_dir():
-        fail(f"no aasist_tpu_torch package beside {__file__}: run it from a "
-             "checkout of the repository")
-    sys.path.insert(0, str(ROOT))
     import torch.nn.functional as F
 
     from aasist_tpu_torch.config import load_config
@@ -3412,12 +3520,18 @@ def main() -> int:
               f"batch a call {np.mean(thr_rows[mode]):.1f} utt/s (runs "
               f"{[round(v, 1) for v in thr_rows[mode]]}), forward "
               f"{np.mean(fwd[mode]):.3f} ms/batch on the device  [{card}]")
+    stages = profile_stages_phase(card, path_kernels, scorer.model, xb,
+                                  fwd, set_mode)
 
     # ---------------------------------------------------------------- 6
     del scorer, xb
     torch.cuda.empty_cache()
     eval_launches = eval_pipeline(card, path_kernels,
                                   keep=("LA99", "LA77"))
+    torch.cuda.empty_cache()
+    tools = tools_phase(card, path_kernels, ROOT / "chiprun_out" / "eval")
+    (ROOT / "chiprun_out" / "tools.json").write_text(json.dumps(
+        {"card": card, "profile_stages": stages, **tools}, indent=1))
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 7
