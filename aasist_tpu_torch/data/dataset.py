@@ -295,6 +295,20 @@ class TrainBatcher:
     are the global batch's and the batcher decodes and yields only this
     rank's rows of it: its share of each of the ``groups`` microbatches
     (gradient accumulation), in order.
+
+    ``counters`` holds running totals over every batch made, kept by the
+    producer threads (a profiler records no spans of its threads):
+    ``batches``, and the milliseconds of ``rows_ms`` (the pool's reads and
+    crops), ``collate_ms`` (stacking and casting the rows, the label and
+    duration tensors), ``pin_ms`` (the copies into pinned memory) and
+    ``produce_ms`` (the whole batch, all of these and its plan; not the
+    wait for room in the prefetch queue), each a sum of
+    ``time.perf_counter`` differences.  Each batch publishes a new dict
+    under a lock: one read of ``counters`` is one consistent set of
+    totals, and a dropped iterator's producer still running beside a new
+    one's loses no update.  A caller reads their change over an interval
+    (``train/loop.py:run_training`` logs the producer's ms a batch of
+    each epoch).
     """
 
     def __init__(self, store: AudioStore, utt_ids: Sequence[str],
@@ -325,6 +339,9 @@ class TrainBatcher:
         self.pin_memory = pin_memory
         self.rows = local_rows(batch_size, rank, world, groups)
         self.epoch = 0
+        self.counters = {"batches": 0, "rows_ms": 0.0, "collate_ms": 0.0,
+                         "pin_ms": 0.0, "produce_ms": 0.0}
+        self._counting = threading.Lock()
 
     def __len__(self):
         return len(self.utt_ids) // self.batch_size  # drop_last
@@ -348,6 +365,7 @@ class TrainBatcher:
         def produce(emit):
             with cf.ThreadPoolExecutor(self.num_threads) as pool:
                 for b in range(len(self)):
+                    t0 = time.perf_counter()
                     idx = order[b * self.batch_size:
                                 (b + 1) * self.batch_size]
                     ids = [self.utt_ids[i] for i in idx]
@@ -363,10 +381,12 @@ class TrainBatcher:
                         targets = [self.fixed_len] * len(ids)
                         pad_to = self.fixed_len
                     ids = [ids[j] for j in self.rows]
+                    t1 = time.perf_counter()
                     out = list(pool.map(
                         self._load_row, ids, [targets[j] for j in self.rows],
                         [pad_to] * len(ids),
                         [row_rngs[j] for j in self.rows]))
+                    t2 = time.perf_counter()
                     batch = (
                         torch.from_numpy(np.stack([r for r, _ in out])
                                          .astype(np.float32, copy=False)),
@@ -374,8 +394,21 @@ class TrainBatcher:
                                      dtype=torch.int64),
                         torch.tensor([d for _, d in out],
                                      dtype=torch.float32))
+                    t3 = time.perf_counter()
                     if self.pin_memory:
                         batch = tuple(t.pin_memory() for t in batch)
+                    t4 = time.perf_counter()
+                    self._count(rows_ms=t2 - t1, collate_ms=t3 - t2,
+                                pin_ms=t4 - t3, produce_ms=t4 - t0)
                     emit(batch)
 
         return _iter_prefetched(produce, self.prefetch)
+
+    def _count(self, **seconds: float) -> None:
+        """Add one batch and its stages' seconds to ``counters``."""
+        with self._counting:
+            totals = dict(self.counters)
+            totals["batches"] += 1
+            for key, s in seconds.items():
+                totals[key] += 1e3 * s
+            self.counters = totals

@@ -40,6 +40,7 @@ from aasist_tpu_torch import nn
 from aasist_tpu_torch.models import layers as L
 from aasist_tpu_torch.ops.fused_frontend import fused_frontend_mesh
 from aasist_tpu_torch.ops.fused_stack import fused_frontend_block0
+from aasist_tpu_torch.utils.profiling import annotate
 
 
 class SincFrontendModel(tnn.Module):
@@ -196,45 +197,55 @@ class AasistModel(SincFrontendModel):
         ``speaker_embedding`` (B, spk_emb_dim) conditions a model built
         with ``speaker_conditioning``, at its ``conditioning_level``, and
         is ignored by any other.  ``rngs`` feeds the train-mode dropouts
-        and ``freq_aug``'s mask."""
+        and ``freq_aug``'s mask.  Under a profiler its stages are the spans
+        ``model.input``, ``model.frontend`` (``model.fused_stack`` on that
+        route), one ``model.block<i>`` a block (``L.run_encoder``) and
+        ``model.graph`` (the graph views through ``out_layer``)."""
         train = self.training
         if train and self.use_fused_stack:
             raise RuntimeError("use_fused_stack is eval only: the frontend "
                                "+ block-0 kernel pair has no backward")
-        x, bank = L.model_input(self, x, rngs, freq_aug)
+        with annotate("model.input"):
+            x, bank = L.model_input(self, x, rngs, freq_aug)
         if self.use_fused_stack:
-            e, blocks = self.fused_stack(x, bank), self.encoder[1:]
+            with annotate("model.fused_stack"):
+                e = self.fused_stack(x, bank)
+            blocks, first = self.encoder[1:], 1
         else:
-            e, blocks = self.frontend(x, bank), self.encoder
-        e = L.run_encoder(blocks, e, self.remat)              # (B,C,F,T)
-        out_t, out_s = graph_views(self, e, rngs)
+            with annotate("model.frontend"):
+                e = self.frontend(x, bank)
+            blocks, first = self.encoder, 0
+        e = L.run_encoder(blocks, e, self.remat, first)       # (B,C,F,T)
+        with annotate("model.graph"):
+            out_t, out_s = graph_views(self, e, rngs)
 
-        # the JAX eval forward vmaps the two branches; same math in turn
-        out_t1, out_s1, master1 = self._branch("1", out_t, out_s,
-                                               self.master1, rngs)
-        out_t2, out_s2, master2 = self._branch("2", out_t, out_s,
-                                               self.master2, rngs)
-        if train:
-            out_t1, out_t2, out_s1, out_s2, master1, master2 = (
-                nn.stream_dropout(rngs, t, 0.2, True)
-                for t in (out_t1, out_t2, out_s1, out_s2, master1, master2))
-        out_t = torch.maximum(out_t1, out_t2)
-        out_s = torch.maximum(out_s1, out_s2)
-        master = torch.maximum(master1, master2)
+            # the JAX eval forward vmaps the two branches; same math in turn
+            out_t1, out_s1, master1 = self._branch("1", out_t, out_s,
+                                                   self.master1, rngs)
+            out_t2, out_s2, master2 = self._branch("2", out_t, out_s,
+                                                   self.master2, rngs)
+            if train:
+                out_t1, out_t2, out_s1, out_s2, master1, master2 = (
+                    nn.stream_dropout(rngs, t, 0.2, True)
+                    for t in (out_t1, out_t2, out_s1, out_s2, master1,
+                              master2))
+            out_t = torch.maximum(out_t1, out_t2)
+            out_s = torch.maximum(out_s1, out_s2)
+            master = torch.maximum(master1, master2)
 
-        cond = (self.spk_cond_gat if speaker_embedding is not None
-                else None)
-        if cond is not None:
-            speaker_embedding = speaker_embedding.to(x.dtype)
-        if cond is not None and cond.level == "frame":
-            out_t = cond(out_t, speaker_embedding)
-            out_s = cond(out_s, speaker_embedding)
-        last_hidden = torch.cat(readout(out_t, out_s) + [master[:, 0]],
-                                dim=1)
-        if cond is not None and cond.level == "utterance":
-            last_hidden = cond(last_hidden, speaker_embedding)
-        last_hidden = nn.stream_dropout(rngs, last_hidden, 0.5, train)
-        return last_hidden, self.out_layer(last_hidden)
+            cond = (self.spk_cond_gat if speaker_embedding is not None
+                    else None)
+            if cond is not None:
+                speaker_embedding = speaker_embedding.to(x.dtype)
+            if cond is not None and cond.level == "frame":
+                out_t = cond(out_t, speaker_embedding)
+                out_s = cond(out_s, speaker_embedding)
+            last_hidden = torch.cat(readout(out_t, out_s) + [master[:, 0]],
+                                    dim=1)
+            if cond is not None and cond.level == "utterance":
+                last_hidden = cond(last_hidden, speaker_embedding)
+            last_hidden = nn.stream_dropout(rngs, last_hidden, 0.5, train)
+            return last_hidden, self.out_layer(last_hidden)
 
 
 def count_params(model: tnn.Module) -> int:

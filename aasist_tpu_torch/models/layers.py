@@ -31,6 +31,7 @@ from torch import nn as tnn
 from torch.utils.checkpoint import checkpoint
 
 from aasist_tpu_torch import nn
+from aasist_tpu_torch.utils.profiling import annotate
 
 
 # =====================================================================
@@ -305,18 +306,23 @@ def _remat_block(block: tnn.Module, e: torch.Tensor) -> torch.Tensor:
                                           _bn_state_kept(block)))
 
 
-def run_encoder(blocks, e: torch.Tensor, remat: bool) -> torch.Tensor:
+def run_encoder(blocks, e: torch.Tensor, remat: bool, first: int = 0
+                ) -> torch.Tensor:
     """``e`` through ``blocks`` in turn.  With ``remat`` in a train-mode
     forward that records gradients, each block is rematerialised in the
     backward (``torch.utils.checkpoint``, the JAX package's
     ``jax.checkpoint``): the same math, the early blocks' large activations
     not kept; the recompute leaves the running statistics as the forward
-    left them."""
-    for block in blocks:
-        if remat and block.training and torch.is_grad_enabled():
-            e = _remat_block(block, e)
-        else:
-            e = block(e)
+    left them.  Each block's call is the span ``model.block<i>``
+    (``utils/profiling.py:annotate``), ``i`` its index in the encoder
+    (``first`` that of ``blocks[0]``); a recompute in the backward runs
+    outside it."""
+    for i, block in enumerate(blocks, first):
+        with annotate(f"model.block{i}"):
+            if remat and block.training and torch.is_grad_enabled():
+                e = _remat_block(block, e)
+            else:
+                e = block(e)
     return e
 
 

@@ -21,6 +21,16 @@ in one process, as the JAX Scorer's ``mesh``: a replica of the model on
 each device, each batch split by rows, each part queued on its device's
 stream and its scores copied into the batch's pinned buffer behind that
 device's event.
+
+Under a profiler (``utils/profiling.py:annotate``) each batch is the span
+``serving.dispatch``, its sequence number in the span's arguments, with
+the children ``serving.acquire`` (the wait for a free slot),
+``serving.fill`` (the rows written into the slot), ``serving.send`` (the
+non-blocking copy in) and ``serving.forward`` (the forward queued and the
+scores' copy back); on the CPU ``serving.forward`` alone.  Reading its
+scores is ``serving.drain``, with the same sequence number, and its child
+``serving.wait`` (the wait for the slot's events).  The number pairs a
+batch's dispatch with its drain in a trace viewer.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 from aasist_tpu_torch.data.dataset import (FIXED_EVAL_LEN, pad_into,
                                            pad_to_fixed)
 from aasist_tpu_torch.utils.dispatch import Slot, SlotRing, pipelined, record
+from aasist_tpu_torch.utils.profiling import annotate
 
 # Serving batch per architecture: the JAX package's starting values (128;
 # RawNet2's 1-D trunk 256), not yet measured on the H100.  Keys are
@@ -61,11 +72,14 @@ def _pad_rows(batch: np.ndarray, size: int) -> np.ndarray:
 class _Ticket(NamedTuple):
     """A dispatched batch: its ``n`` real rows' scores, already computed
     (CPU), or in ``slot`` once its event has completed, while the slot
-    still carries batch ``gen`` (CUDA)."""
+    still carries batch ``gen`` (CUDA); ``seq`` numbers the scorer's
+    batches, the argument of the batch's ``serving.dispatch`` and
+    ``serving.drain`` spans."""
     n: int
     scores: Optional[np.ndarray]
     slot: Optional[Slot]
     gen: int
+    seq: int
 
 
 class Scorer:
@@ -142,6 +156,7 @@ class Scorer:
         # comes round again only after its ticket has been drained
         self._ring = SlotRing(DISPATCH_DEPTH + 1, (batch_size, window),
                               batch_size)
+        self._seq = 0       # batches dispatched
 
     @classmethod
     def from_config(cls, config_path, weights_path=None, **kwargs
@@ -163,41 +178,49 @@ class Scorer:
         with a non-blocking copy, and the scores come back into a pinned
         buffer behind an event: nothing here waits for the device.  On the
         CPU the scores are computed at once."""
-        n = len(waves)
-        if self.device.type != "cuda":
-            rows = np.stack([pad_to_fixed(np.asarray(w, np.float32),
-                                          self.window) for w in waves])
-            x = torch.from_numpy(_pad_rows(rows, self.batch_size))
+        n, seq = len(waves), self._seq
+        self._seq += 1
+        with annotate("serving.dispatch", seq):
+            if self.device.type != "cuda":
+                rows = np.stack([pad_to_fixed(np.asarray(w, np.float32),
+                                              self.window) for w in waves])
+                x = torch.from_numpy(_pad_rows(rows, self.batch_size))
+                with annotate("serving.forward"), torch.inference_mode():
+                    scores = torch.cat([
+                        model(x[part].to(device))[1][:, 1].float().cpu()
+                        for part, device, model in self._parts])
+                return _Ticket(n, scores.numpy()[:n], None, 0, seq)
+            with annotate("serving.acquire"):
+                slot = self._ring.acquire()
+            with annotate("serving.fill"):
+                host = slot.rows.numpy()
+                for i, w in enumerate(waves):
+                    pad_into(host[i], np.asarray(w, np.float32))
+                host[n:] = host[n - 1]
+            events = []
             with torch.inference_mode():
-                scores = torch.cat([model(x[part].to(device))[1][:, 1]
-                                    .float().cpu()
-                                    for part, device, model in self._parts])
-            return _Ticket(n, scores.numpy()[:n], None, 0)
-        slot = self._ring.acquire()
-        host = slot.rows.numpy()
-        for i, w in enumerate(waves):
-            pad_into(host[i], np.asarray(w, np.float32))
-        host[n:] = host[n - 1]
-        events = []
-        with torch.inference_mode():
-            for part, device, model in self._parts:
-                with torch.cuda.device(device):
-                    x = slot.rows[part].to(device, non_blocking=True)
-                    _, logits = model(x)
-                    slot.scores[part].copy_(logits[:, 1].float(),
-                                            non_blocking=True)
-                    events.append(record(device))
-        slot.events = events
-        return _Ticket(n, None, slot, slot.gen)
+                for part, device, model in self._parts:
+                    with torch.cuda.device(device):
+                        with annotate("serving.send"):
+                            x = slot.rows[part].to(device, non_blocking=True)
+                        with annotate("serving.forward"):
+                            _, logits = model(x)
+                            slot.scores[part].copy_(logits[:, 1].float(),
+                                                    non_blocking=True)
+                            events.append(record(device))
+            slot.events = events
+            return _Ticket(n, None, slot, slot.gen, seq)
 
     def _drain(self, ticket: _Ticket) -> np.ndarray:
         """Wait for a dispatched batch and return its n scores.  A ticket
         must be drained before DISPATCH_DEPTH + 1 more batches are
         dispatched, or its slot carries another batch and this raises."""
-        if ticket.slot is None:
-            return ticket.scores
-        ticket.slot.check(ticket.gen, "Scorer")
-        return ticket.slot.scores.numpy()[:ticket.n].copy()
+        with annotate("serving.drain", ticket.seq):
+            if ticket.slot is None:
+                return ticket.scores
+            with annotate("serving.wait"):
+                ticket.slot.check(ticket.gen, "Scorer")
+            return ticket.slot.scores.numpy()[:ticket.n].copy()
 
     def _fwd(self, waves: Sequence[np.ndarray]) -> np.ndarray:
         """n <= batch_size waveforms -> (n,) bonafide scores,

@@ -54,6 +54,7 @@ from aasist_tpu_torch.evaluation.scorefile import write_score_file
 from aasist_tpu_torch.parallel.mesh import (Ranks, row_shard,
                                             sync_batch_norm)
 from aasist_tpu_torch.utils.dispatch import SlotRing, pipelined, record
+from aasist_tpu_torch.utils.profiling import annotate
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:
@@ -332,6 +333,12 @@ def make_train_step(model: torch.nn.Module, loss_fn, optimizer, schedule,
     global batch, its share of each microbatch in order
     (``parallel/mesh.py:local_rows``); ``loss_fn`` is called with
     ``ranks=``; the returned loss and count are the global batch's.
+
+    Under a profiler (``utils/profiling.py:annotate``) a step is the span
+    ``train.step``, ``global_step`` in its arguments (to find a step in a
+    trace viewer), with the children ``train.zero_grad``,
+    ``train.forward`` and ``train.backward`` (each microbatch's loss and
+    its backward) and ``train.optimizer``.
     """
     robust = robust or RobustOptions()
     run = forward_fn(model, mixed_precision)
@@ -397,24 +404,30 @@ def make_train_step(model: torch.nn.Module, loss_fn, optimizer, schedule,
                 f"grad_accum_steps {k}; the tail {x.shape[0] % k} rows "
                 "would be dropped: use a divisible batch size or adjust "
                 "grad_accum_steps")
-        for group in optimizer.param_groups:
-            group["lr"] = schedule(global_step)
-        optimizer.zero_grad(set_to_none=True)
-        loss_sum = n_correct = 0
-        for i, (xs, ys, ds) in enumerate(zip(x.chunk(k), y.chunk(k),
-                                             durations.chunk(k))):
-            loss, logits = micro(xs, ys, ds, (seed + 1, global_step, i))
-            (loss / k).backward()
-            loss_sum = loss_sum + loss.detach()
-            n_correct = n_correct + (logits.argmax(-1) == ys).sum()
-        if dp:
-            ranks.sum_grads(params)
-            tot = ranks.sum_(torch.stack([loss_sum.double(),
-                                          n_correct.double()]))
-            loss_sum = tot[0].to(loss_sum.dtype)
-            n_correct = tot[1].round().long()
-        optimizer.step()
-        return loss_sum / k, n_correct
+        with annotate("train.step", global_step):
+            for group in optimizer.param_groups:
+                group["lr"] = schedule(global_step)
+            with annotate("train.zero_grad"):
+                optimizer.zero_grad(set_to_none=True)
+            loss_sum = n_correct = 0
+            for i, (xs, ys, ds) in enumerate(zip(x.chunk(k), y.chunk(k),
+                                                 durations.chunk(k))):
+                with annotate("train.forward"):
+                    loss, logits = micro(xs, ys, ds,
+                                         (seed + 1, global_step, i))
+                with annotate("train.backward"):
+                    (loss / k).backward()
+                loss_sum = loss_sum + loss.detach()
+                n_correct = n_correct + (logits.argmax(-1) == ys).sum()
+            if dp:
+                ranks.sum_grads(params)
+                tot = ranks.sum_(torch.stack([loss_sum.double(),
+                                              n_correct.double()]))
+                loss_sum = tot[0].to(loss_sum.dtype)
+                n_correct = tot[1].round().long()
+            with annotate("train.optimizer"):
+                optimizer.step()
+            return loss_sum / k, n_correct
 
     return step
 
@@ -526,6 +539,7 @@ def run_training(cfg, model: torch.nn.Module, loaders: Loaders, run_dir, *,
         loaders.train.set_epoch(epoch)
         model.train()
         t0 = time.time()
+        counted = loaders.train.counters    # each batch publishes a new one
         loss_sum, n_correct, n_seen = 0.0, 0, 0
         pending: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
 
@@ -560,6 +574,12 @@ def run_training(cfg, model: torch.nn.Module, loaders: Loaders, run_dir, *,
         log.scalar("train_acc", 100.0 * n_correct / max(n_seen, 1), epoch)
         log.scalar("lr", schedule(global_step), epoch)
         log.scalar("epoch_seconds", time.time() - t0, epoch)
+        # the loader's ms a batch by stage (``TrainBatcher.counters``)
+        now = loaders.train.counters
+        made = max(now["batches"] - counted["batches"], 1)
+        for key in ("rows_ms", "collate_ms", "pin_ms", "produce_ms"):
+            log.scalar(f"loader_{key}", (now[key] - counted[key]) / made,
+                       epoch)
 
         dev_eer, dev_tdcf = score(
             loaders.dev, loaders.dev_trial_meta, metric_dir / "dev_score.txt",

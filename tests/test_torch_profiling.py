@@ -1,6 +1,6 @@
 """``aasist_tpu_torch/utils/profiling.py`` and ``data/download.py`` on the
-CPU: ``Timer``'s statistics over its repetitions (after the warm-up),
-``trace`` writing a Chrome trace that holds an ``annotate`` span, and
+CPU: ``trace`` writing a Chrome trace that holds an ``annotate`` span,
+``annotate`` making no call into the profiler while none records, and
 ``download`` on a ``file://`` zip made here (no network), with its error
 for a zip that holds no ``LA/``."""
 
@@ -14,19 +14,20 @@ from aasist_tpu_torch.data import download as dl
 from aasist_tpu_torch.utils import profiling
 
 
-def test_timer_statistics(monkeypatch):
-    clock = iter([0.0, 1.0, 1.0, 4.0, 4.0, 6.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    calls = []
+class _NoProfilerOps:
+    """Stands in for ``torch.ops.profiler``: any use of it fails."""
 
-    def fn(v):
-        calls.append(v)
-        return torch.tensor(float(v))
+    def __getattr__(self, name):
+        raise AssertionError(f"torch.ops.profiler.{name} was called")
 
-    stats = profiling.Timer(fn, warmup=2, reps=3).measure(7)
-    assert calls == [7] * 5
-    assert stats == {"mean_s": 2.0, "min_s": 1.0, "max_s": 3.0,
-                     "median_s": 2.0}
+
+def test_annotate_makes_no_profiler_call_while_none_records(monkeypatch):
+    monkeypatch.setattr(torch.ops, "profiler", _NoProfilerOps())
+    first = profiling.annotate("serving.dispatch", 3)
+    with first:
+        with profiling.annotate("model.block0"):
+            torch.ones(2) + 1
+    assert profiling.annotate("train.step") is first
 
 
 def test_trace_holds_the_annotated_span(tmp_path):

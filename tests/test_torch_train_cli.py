@@ -87,8 +87,18 @@ def test_training_writes_the_run_directory(runs):
     assert (meta["step"], meta["epoch"]) == (8, 1)
     names = {json.loads(line)["name"] for line in
              (run_dir / "metrics.jsonl").read_text().splitlines()}
+    loader = {f"loader_{k}" for k in ("rows_ms", "collate_ms", "pin_ms",
+                                      "produce_ms")}
     assert {"loss", "train_acc", "lr", "dev_eer", "dev_tdcf",
-            "best_dev_eer"} <= names
+            "best_dev_eer"} | loader <= names
+    ms = {}
+    for line in (run_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["name"] in loader:
+            ms.setdefault(rec["name"], []).append(rec["value"])
+    # one value an epoch, the producer's ms a batch by stage
+    assert all(len(v) == 2 and min(v) >= 0 for v in ms.values())
+    assert min(ms["loader_produce_ms"]) > 0
     losses = [json.loads(line)["value"] for line in
               (run_dir / "metrics.jsonl").read_text().splitlines()
               if json.loads(line)["name"] == "loss"]
