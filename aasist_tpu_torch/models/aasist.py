@@ -98,7 +98,8 @@ def readout(out_t: torch.Tensor, out_s: torch.Tensor) -> list:
 class AasistModel(SincFrontendModel):
     """AASIST with the residual or the Res2Net encoder.
 
-    ``use_fused_stack`` (eval only, default off; the key
+    ``use_fused_stack`` (eval only, default off in the config, on in the
+    bf16 Scorer on a card: ``serving.kernel_route``; the key
     ``tools/fused_stack.py`` names) runs the frontend and residual block 0
     as the CUDA kernel pair of ``ops/fused_stack`` instead of the frontend
     and block 0, and takes precedence over ``use_fused_frontend``; the pair

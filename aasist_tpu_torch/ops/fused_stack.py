@@ -128,6 +128,16 @@ def _check_block0(block: torch.nn.Module, name: str) -> None:
             "a downsample conv (filts[1] = [1, C] with C > 1)")
 
 
+def takes_block0(block: torch.nn.Module) -> bool:
+    """Whether the block-0 kernels take ``block``: the first residual
+    block, 1 -> ``BLOCK0_CHANNELS`` channels with a downsample conv."""
+    try:
+        _check_block0(block, "takes_block0")
+    except ValueError:
+        return False
+    return block.conv1.out_channels == BLOCK0_CHANNELS
+
+
 def _bias(conv: torch.nn.Conv2d) -> torch.Tensor:
     if conv.bias is None:
         return conv.weight.new_zeros(conv.out_channels, dtype=torch.float32)

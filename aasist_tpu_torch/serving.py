@@ -43,6 +43,7 @@ import torch
 
 from aasist_tpu_torch.data.dataset import (FIXED_EVAL_LEN, pad_into,
                                            pad_to_fixed)
+from aasist_tpu_torch.ops.fused_stack import takes_block0
 from aasist_tpu_torch.utils.dispatch import Slot, SlotRing, pipelined, record
 from aasist_tpu_torch.utils.profiling import annotate
 
@@ -69,6 +70,40 @@ def _pad_rows(batch: np.ndarray, size: int) -> np.ndarray:
     return np.concatenate([batch, np.repeat(batch[-1:], size - n, axis=0)])
 
 
+def kernel_route(model: torch.nn.Module, *, bf16: bool, device_type: str,
+                 use_fused_frontend: Optional[bool] = None,
+                 use_fused_stack: Optional[bool] = None) -> str:
+    """Set ``model``'s kernel paths as a Scorer computing in bf16 (or f32)
+    on a ``device_type`` device sets them, and return the route of its eval
+    forward: "stack" (the frontend + block-0 kernel pair), "frontend" (the
+    sinc-frontend kernel, block 0 on stock ops) or "stock".
+
+    ``None`` decides from the model: in bf16 on CUDA the frontend kernel
+    for a model that has it, and the pair for one that has the stack path
+    (``has_fused_stack``) with a block 0 the kernels take
+    (``ops.fused_stack.takes_block0``).  ``True`` on a model without the
+    path raises."""
+    auto = bf16 and device_type == "cuda"
+    if use_fused_frontend is None:
+        use_fused_frontend = auto and hasattr(model, "use_fused_frontend")
+    if use_fused_stack is None:
+        use_fused_stack = (auto and getattr(model, "has_fused_stack", False)
+                           and takes_block0(model.encoder[0]))
+    for key, on, path in (
+            ("use_fused_frontend", use_fused_frontend, "fused frontend"),
+            ("use_fused_stack", use_fused_stack, "fused frontend + block-0")):
+        if hasattr(model, key):
+            setattr(model, key, bool(on))  # AASIST2's stack raises
+        elif on:
+            raise ValueError(f"Scorer: {type(model).__name__} has no "
+                             f"{path} path")
+    if getattr(model, "use_fused_stack", False):
+        return "stack"
+    if getattr(model, "use_fused_frontend", False):
+        return "frontend"
+    return "stock"
+
+
 class _Ticket(NamedTuple):
     """A dispatched batch: its ``n`` real rows' scores, already computed
     (CPU), or in ``slot`` once its event has completed, while the slot
@@ -88,23 +123,27 @@ class Scorer:
     ``device=None`` means ``"cuda"``, and raises when no card is present;
     pass ``device="cpu"`` to score on the CPU.  ``bf16=True`` casts the
     float32 weights and buffers to bfloat16 and computes in it.
+    The kernels are chosen once, here (``kernel_route``).
     ``use_fused_frontend=None`` turns the CUDA sinc-frontend kernel on when
     computing in bf16 on a CUDA device, for a model that has that path
     (AASIST, AASIST2, AASIST-Robust, RawGAT-ST; not RawNet2).
-    ``use_fused_stack=True`` runs the frontend and residual block 0 through
-    the CUDA kernel pair of ``ops/fused_stack`` instead (off by default;
-    AASIST's residual encoder only).  Asking for a path the model lacks
-    raises.  The caller's model is not changed: the scorer works on its own
-    copy.  ``mesh`` spreads each batch over its devices (one replica each,
-    ``batch_size`` a multiple of the mesh's size); ``device`` is then the
-    mesh's first.
+    ``use_fused_stack=None`` runs the frontend and residual block 0 through
+    the CUDA kernel pair of ``ops/fused_stack`` instead, in bf16 on a CUDA
+    device, for a residual encoder whose block 0 the pair takes (1 -> 32
+    channels with a downsample: AASIST, AASIST-L); ``use_fused_stack=False``
+    keeps such a model on the frontend kernel and block 0 on stock ops.
+    Asking for a path the model lacks raises.  The caller's model is not
+    changed: the scorer works on its own copy.  ``mesh`` spreads each batch
+    over its devices (one replica each, ``batch_size`` a multiple of the
+    mesh's size); ``device`` is then the mesh's first.
     """
 
     def __init__(self, model: torch.nn.Module, *,
                  batch_size: Optional[int] = None,
                  window: int = FIXED_EVAL_LEN, bf16: bool = True,
                  use_fused_frontend: Optional[bool] = None,
-                 use_fused_stack: bool = False, device=None, mesh=None):
+                 use_fused_stack: Optional[bool] = None, device=None,
+                 mesh=None):
         devices = (list(mesh.devices) if mesh is not None
                    else [torch.device("cuda" if device is None else device)])
         device = devices[0]
@@ -130,18 +169,9 @@ class Scorer:
         model = copy.deepcopy(model).eval().to(device)
         if bf16:
             model = model.to(torch.bfloat16)
-        if use_fused_frontend is None:
-            use_fused_frontend = (bf16 and device.type == "cuda"
-                                  and hasattr(model, "use_fused_frontend"))
-        for key, on, path in (
-                ("use_fused_frontend", use_fused_frontend, "fused frontend"),
-                ("use_fused_stack", use_fused_stack,
-                 "fused frontend + block-0")):
-            if hasattr(model, key):
-                setattr(model, key, bool(on))  # AASIST2's stack raises
-            elif on:
-                raise ValueError(f"Scorer: {type(model).__name__} has no "
-                                 f"{path} path")
+        kernel_route(model, bf16=bf16, device_type=device.type,
+                     use_fused_frontend=use_fused_frontend,
+                     use_fused_stack=use_fused_stack)
         self.model = model
         replicas = {device: model}
         for d in devices:

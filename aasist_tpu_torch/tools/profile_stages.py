@@ -8,7 +8,8 @@ throughput from device time, with the card's name and power limit.
 
 ``--path`` picks the route through the model config's keys:
 ``frontend`` (``use_fused_frontend``: the tensor-core frontend kernel in
-bf16, the Scorer's default), ``stack`` (``use_fused_stack``: cut 0 is the
+bf16, the Scorer's route with ``use_fused_stack=False``), ``stack``
+(``use_fused_stack``, the Scorer's default in bf16 on a card: cut 0 is the
 padded frontend store, cut 1 adds the block-0 kernel, whose channels-last
 output the next blocks take as it is) or ``none`` (stock ops).  The cuts
 run the model's own submodules (``frontend``, ``fused_stack``, the encoder

@@ -54,11 +54,12 @@ Phases, each of which raises (exit code 1) on failure:
      phase's seconds printed);
   4. the main paths, each with every kernel wrapper's launch count reset
      just before and read just after, and checked: Scorer.from_config(
-     "configs/AASIST.conf") with the pretrained weights (bf16, the
-     tensor-core frontend) serves 5 requests of 1-6 s, then 131 (one full
-     and one ragged batch of 128), pipelined two batches deep; a Scorer
-     with use_fused_stack=True serves the same requests with the new block
-     0, then with the older one; f32 Scorers without kernels, with the
+     "configs/AASIST.conf", use_fused_stack=False) with the pretrained
+     weights (bf16, the tensor-core frontend) serves 5 requests of 1-6 s,
+     then 131 (one full and one ragged batch of 128), pipelined two batches
+     deep; the default Scorer (the frontend + block-0 pair) serves the same
+     requests with the new block 0, then with the older one; f32 Scorers
+     without kernels, with the
      CUDA-core frontend redesign and with the 3xTF32 pair, then the last
      two with the older CUDA-core kernels, held to them, and the f32
      forwards timed
@@ -1764,8 +1765,9 @@ def parallel_phase(card: str, path_kernels: dict, requests, weights):
     waves = requests[1][:128] * 5
     report["mesh_scorer"] = {}
     for label, kw, own in (
-            ("bf16 frontend", {}, ("fused_frontend_dot_plain",)),
-            ("bf16 stack", {"use_fused_stack": True},
+            ("bf16 frontend", {"use_fused_stack": False},
+             ("fused_frontend_dot_plain",)),
+            ("bf16 stack", {},
              ("fused_frontend_dot_padded", "block0_pipe")),
             ("f32 frontend", {"bf16": False, "use_fused_frontend": True},
              (F32_FRONTEND,))):
@@ -1841,7 +1843,8 @@ def parallel_phase(card: str, path_kernels: dict, requests, weights):
           f"of fused_frontend_tf32x3 ({json.dumps(direct)})")
     del xg, bank
 
-    two = Scorer.from_config(conf_path, weights_path=weights, mesh=m)
+    two = Scorer.from_config(conf_path, weights_path=weights, mesh=m,
+                             use_fused_stack=False)
     rows = np.stack([np.resize(w, 64600) for w in requests[1][:128]])
     two.score_batch(rows)
     trace_dir = ROOT / "chiprun_out" / "profile_mesh"
@@ -3326,9 +3329,11 @@ def main() -> int:
         return out, counts
 
     scorer = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
-                                weights_path=weights)
-    check(scorer.device.type == "cuda" and scorer.model.use_fused_frontend,
-          "the default Scorer must run on CUDA with the fused frontend")
+                                weights_path=weights, use_fused_stack=False)
+    check(scorer.device.type == "cuda" and scorer.model.use_fused_frontend
+          and not scorer.model.use_fused_stack,
+          "Scorer(use_fused_stack=False) must run on CUDA with the fused "
+          "frontend")
     check(scorer.batch_size == 128, f"batch size {scorer.batch_size}")
     scorer.warmup()
     rng = np.random.default_rng(0)
@@ -3338,13 +3343,14 @@ def main() -> int:
     n_batches = sum(-(-len(r) // scorer.batch_size) for r in requests)
 
     scores, launches = serve(scorer, requests, {
-        "fused_frontend_dot_plain": n_batches}, "bf16 default path")
+        "fused_frontend_dot_plain": n_batches}, "bf16 frontend path")
 
-    # the frontend + block-0 pair's path, the same requests: with the
-    # warp-specialised block 0, then with the older kernel
+    # the frontend + block-0 pair's path, the default, the same requests:
+    # with the warp-specialised block 0, then with the older kernel
     stack = Scorer.from_config(ROOT / "configs" / "AASIST.conf",
-                               weights_path=weights, use_fused_stack=True)
-    check(stack.model.use_fused_stack, "Scorer(use_fused_stack=True)")
+                               weights_path=weights)
+    check(stack.model.use_fused_stack,
+          "the default bf16 Scorer must take the frontend + block-0 pair")
     stack.warmup()
     stack_want = {"fused_frontend_dot_padded": n_batches}
     stack_scores, stack_launches = serve(
@@ -3670,7 +3676,7 @@ def main() -> int:
              "fused_frontend_dot_plain"],
          "zoo_launches": zoo_runs("fused_frontend_dot_plain"),
          **dot_plain_results["bfloat16"], "dtype": "bfloat16",
-         "shape": [128, 64600], "path": "bf16 default",
+         "shape": [128, 64600], "path": "bf16 frontend",
          "wgmma_reading": wg_readings["fused_frontend_dot_plain"]},
         {"name": "fused_frontend_dot_padded", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/frontend_dot.cu",
@@ -3679,7 +3685,7 @@ def main() -> int:
          "eval_launches": eval_launches["bf16_stack"][
              "fused_frontend_dot_padded"],
          **s16["fused_frontend_dot_padded"], "dtype": "bfloat16",
-         "shape": [128, 64600], "path": "bf16 stack",
+         "shape": [128, 64600], "path": "bf16 stack (default)",
          "wgmma_reading": wg_readings["fused_frontend_dot_padded"]},
         {"name": "block0_pipe", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/block0_pipe.cu",
@@ -3687,7 +3693,7 @@ def main() -> int:
          "launches": stack_launches["block0_pipe"], **s16["block0_pipe"],
          "eval_launches": eval_launches["bf16_stack"]["block0_pipe"],
          "phases_ms": phases.get("block0_pipe"), "dtype": "bfloat16",
-         "shape": [128, 64600], "path": "bf16 stack"},
+         "shape": [128, 64600], "path": "bf16 stack (default)"},
         {"name": "fused_frontend_ffma", "route": "cuda",
          "source": "aasist_tpu_torch/csrc/frontend_ffma.cu",
          "replaces": "aasist_tpu/ops/fused_frontend.py:79",

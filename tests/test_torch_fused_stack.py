@@ -24,8 +24,9 @@ from aasist_tpu_torch.models.layers import ResidualBlock
 from aasist_tpu_torch.ops import fused_stack as fs
 from aasist_tpu_torch.ops.block0_pipe import block0_pipe
 from aasist_tpu_torch.ops.frontend_variants import fused_frontend_dot_padded
+from aasist_tpu_torch.config import load_config
 from aasist_tpu_torch.registry import build_model
-from aasist_tpu_torch.serving import Scorer
+from aasist_tpu_torch.serving import Scorer, kernel_route
 from aasist_tpu_torch.weights import load_jax_params
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -230,3 +231,45 @@ def test_cpu_scorer_same_scores_with_the_stack():
     assert not model.use_fused_stack                  # caller's model kept
     np.testing.assert_allclose(on.score_waveforms(waves),
                                off.score_waveforms(waves), atol=1e-5, rtol=0)
+
+
+def _stock(name, **changes):
+    return {**load_config(f"{name}.conf").model_config, **changes}
+
+
+NARROW_B0 = [70, [1, 16], [16, 16], [16, 24], [24, 24]]
+
+
+@pytest.mark.parametrize("conf,bf16,device,stack,want", [
+    (_stock("AASIST"), True, "cuda", None, "stack"),
+    (_stock("AASIST-L"), True, "cuda", None, "stack"),
+    (_stock("AASIST", filts=NARROW_B0), True, "cuda", None, "frontend"),
+    (_stock("AASIST", filts=[70, [1, 1], [1, 32], [32, 24], [24, 24]]),
+     True, "cuda", None, "frontend"),
+    (_stock("AASIST2"), True, "cuda", None, "frontend"),
+    (_stock("RawGATST_baseline"), True, "cuda", None, "frontend"),
+    (_stock("AASIST"), False, "cuda", None, "stock"),
+    (_stock("AASIST"), True, "cpu", None, "stock"),
+    (_stock("AASIST"), True, "cuda", False, "frontend"),
+    (_stock("AASIST2"), True, "cuda", True, ValueError),
+], ids=["aasist", "aasist_l", "block0_1to16", "block0_no_downsample",
+        "aasist2", "rawgat_st", "aasist_f32", "aasist_cpu",
+        "aasist_stack_off", "aasist2_stack_on"])
+def test_the_scorer_route_rule(conf, bf16, device, stack, want):
+    """The Scorer's choice of kernels (``kernel_route``) for a device type,
+    without a card: by default the frontend + block-0 pair in bf16 on CUDA
+    exactly when the model has the stack path and its block 0 is 1 -> 32
+    channels with a downsample; today's route otherwise (f32 and the CPU
+    take no kernel by default); an explicit False keeps the frontend
+    kernel; an explicit True on AASIST2 raises."""
+    model = build_model(conf)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="residual block 0 only"):
+            kernel_route(model, bf16=bf16, device_type=device,
+                         use_fused_stack=stack)
+        return
+    assert kernel_route(model, bf16=bf16, device_type=device,
+                        use_fused_stack=stack) == want
+    assert getattr(model, "use_fused_stack", False) == (want == "stack")
+    if not hasattr(model, "has_fused_stack"):     # RawGAT-ST
+        assert not hasattr(model, "use_fused_stack")
