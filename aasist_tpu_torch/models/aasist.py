@@ -89,6 +89,43 @@ def graph_views(m: tnn.Module, e: torch.Tensor,
     return m.pool_T(m.GAT_layer_T(e_t, rngs), rngs), out_s
 
 
+def _hs_gal_branch(m: tnn.Module, tag: str, out_t: torch.Tensor,
+                   out_s: torch.Tensor, master: torch.Tensor,
+                   rngs: Optional[nn.RngStream] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One HS-GAL branch of AASIST through ``m``'s HtrgGAT_layer_ST<tag>1
+    and _ST<tag>2 and pool_hS<tag> / pool_hT<tag>: (temporal nodes,
+    spectral nodes, master)."""
+    l1 = getattr(m, f"HtrgGAT_layer_ST{tag}1")
+    l2 = getattr(m, f"HtrgGAT_layer_ST{tag}2")
+    # the raw (1, 1, D) master parameter goes in as is (broadcast)
+    o_t, o_s, mast = l1(out_t, out_s, master, rngs)
+    o_s = getattr(m, f"pool_hS{tag}")(o_s, rngs)
+    o_t = getattr(m, f"pool_hT{tag}")(o_t, rngs)
+    t_aug, s_aug, m_aug = l2(o_t, o_s, mast, rngs)
+    return o_t + t_aug, o_s + s_aug, mast + m_aug
+
+
+def hs_gal(m: tnn.Module, out_t: torch.Tensor, out_s: torch.Tensor,
+           rngs: Optional[nn.RngStream] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """AASIST's two HS-GAL branches from the pooled temporal and spectral
+    nodes, started from ``m``'s master1 and master2 and fused by the
+    element-wise max: (temporal nodes, spectral nodes, master).  In train
+    mode each branch's outputs take a 0.2 dropout first."""
+    # the JAX eval forward vmaps the two branches; same math in turn
+    out_t1, out_s1, master1 = _hs_gal_branch(m, "1", out_t, out_s,
+                                             m.master1, rngs)
+    out_t2, out_s2, master2 = _hs_gal_branch(m, "2", out_t, out_s,
+                                             m.master2, rngs)
+    if m.training:
+        out_t1, out_t2, out_s1, out_s2, master1, master2 = (
+            nn.stream_dropout(rngs, t, 0.2, True)
+            for t in (out_t1, out_t2, out_s1, out_s2, master1, master2))
+    return (torch.maximum(out_t1, out_t2), torch.maximum(out_s1, out_s2),
+            torch.maximum(master1, master2))
+
+
 def readout(out_t: torch.Tensor, out_s: torch.Tensor) -> list:
     """[max|T|, mean T, max|S|, mean S] over the nodes."""
     return [out_t.abs().amax(dim=1), out_t.mean(dim=1),
@@ -180,16 +217,6 @@ class AasistModel(SincFrontendModel):
             {"mean": bn.running_mean, "var": bn.running_var},
             self.encoder[0])
 
-    def _branch(self, tag: str, out_t, out_s, master, rngs):
-        l1 = getattr(self, f"HtrgGAT_layer_ST{tag}1")
-        l2 = getattr(self, f"HtrgGAT_layer_ST{tag}2")
-        # the raw (1, 1, D) master parameter goes in as is (broadcast)
-        o_t, o_s, m = l1(out_t, out_s, master, rngs)
-        o_s = getattr(self, f"pool_hS{tag}")(o_s, rngs)
-        o_t = getattr(self, f"pool_hT{tag}")(o_t, rngs)
-        t_aug, s_aug, m_aug = l2(o_t, o_s, m, rngs)
-        return o_t + t_aug, o_s + s_aug, m + m_aug
-
     def forward(self, x: torch.Tensor,
                 speaker_embedding: Optional[torch.Tensor] = None, *,
                 rngs: Optional[nn.RngStream] = None, freq_aug: bool = False
@@ -219,20 +246,7 @@ class AasistModel(SincFrontendModel):
         e = L.run_encoder(blocks, e, self.remat, first)       # (B,C,F,T)
         with annotate("model.graph"):
             out_t, out_s = graph_views(self, e, rngs)
-
-            # the JAX eval forward vmaps the two branches; same math in turn
-            out_t1, out_s1, master1 = self._branch("1", out_t, out_s,
-                                                   self.master1, rngs)
-            out_t2, out_s2, master2 = self._branch("2", out_t, out_s,
-                                                   self.master2, rngs)
-            if train:
-                out_t1, out_t2, out_s1, out_s2, master1, master2 = (
-                    nn.stream_dropout(rngs, t, 0.2, True)
-                    for t in (out_t1, out_t2, out_s1, out_s2, master1,
-                              master2))
-            out_t = torch.maximum(out_t1, out_t2)
-            out_s = torch.maximum(out_s1, out_s2)
-            master = torch.maximum(master1, master2)
+            out_t, out_s, master = hs_gal(self, out_t, out_s, rngs)
 
             cond = (self.spk_cond_gat if speaker_embedding is not None
                     else None)

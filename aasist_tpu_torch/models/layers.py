@@ -238,7 +238,8 @@ class GraphPool(tnn.Module):
 class ResidualBlock(tnn.Module):
     """conv1 (2,3) pad (1,1) -> bn2 / selu -> conv2 (2,3) pad (0,1);
     a (1,3) downsample conv on the identity when channels change;
-    MaxPool (1,3).
+    MaxPool (1,3), left out with ``pool=False`` (SSL-AASIST's blocks keep
+    the map's size).
 
     ``bn1`` (absent in the first block) is kept so the checkpoints load and
     the parameter counts match: the reference computes bn1 + selu and then
@@ -248,8 +249,10 @@ class ResidualBlock(tnn.Module):
     ``None``) and torch's optimizers skip them, as the reference's did.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, first: bool):
+    def __init__(self, in_ch: int, out_ch: int, first: bool,
+                 pool: bool = True):
         super().__init__()
+        self.pool = pool
         self.conv1 = tnn.Conv2d(in_ch, out_ch, (2, 3), padding=(1, 1))
         self.conv2 = tnn.Conv2d(out_ch, out_ch, (2, 3), padding=(0, 1))
         self.bn2 = tnn.BatchNorm2d(out_ch)
@@ -267,7 +270,8 @@ class ResidualBlock(tnn.Module):
         out = self.conv2(out)
         identity = (x if self.conv_downsample is None
                     else self.conv_downsample(x))
-        return nn.max_pool(out + identity, (1, 3))
+        out = out + identity
+        return nn.max_pool(out, (1, 3)) if self.pool else out
 
 
 @contextlib.contextmanager
@@ -332,8 +336,8 @@ def encoder_plan(filts) -> list:
     return [filts[1], filts[2], filts[3], filts[4], filts[4], filts[4]]
 
 
-def residual_encoder(filts) -> tnn.ModuleList:
-    return tnn.ModuleList(ResidualBlock(cin, cout, first=(i == 0))
+def residual_encoder(filts, pool: bool = True) -> tnn.ModuleList:
+    return tnn.ModuleList(ResidualBlock(cin, cout, first=(i == 0), pool=pool)
                           for i, (cin, cout) in enumerate(encoder_plan(filts)))
 
 

@@ -122,10 +122,11 @@ class Block0Params(NamedTuple):
 
 def _check_block0(block: torch.nn.Module, name: str) -> None:
     ds = getattr(block, "conv_downsample", None)
-    if ds is None or block.conv1.in_channels != 1:
+    if ds is None or block.conv1.in_channels != 1 or not block.pool:
         raise ValueError(
             f"{name}: needs the first residual block, 1 -> C channels with "
-            "a downsample conv (filts[1] = [1, C] with C > 1)")
+            "a downsample conv (filts[1] = [1, C] with C > 1) and its (1, 3) "
+            "max pool")
 
 
 def takes_block0(block: torch.nn.Module) -> bool:

@@ -6,6 +6,9 @@ Counterpart of ``aasist_tpu/registry.py``, with its names:
   * ``AASIST_Robust``     (AASIST-Robust.conf)
   * ``RawNet2Spoof``      (RawNet2_baseline.conf)
   * ``RawNetGatSpoofST``  (RawGATST_baseline.conf)
+and one of the port's own, which the JAX package does not list:
+  * ``SSL_AASIST``        (SSL_AASIST.conf: XLS-R 300M front end + AASIST
+                          back end, eval only)
 Every model is built in eval mode with random weights: load them with
 ``weights.load_npz`` or ``utils/torch_compat.py``.
 """
@@ -38,6 +41,11 @@ def _rawnet2(cfg):
     return RawNet2Model(cfg)
 
 
+def _ssl_aasist(cfg):
+    from aasist_tpu_torch.models.ssl_aasist import SslAasistModel
+    return SslAasistModel(cfg)
+
+
 def _rawgat(cfg):
     from aasist_tpu_torch.models.rawgat_st import RawGatStModel
     return RawGatStModel(cfg)
@@ -45,7 +53,8 @@ def _rawgat(cfg):
 
 _REGISTRY: Dict[str, Callable[[Dict[str, Any]], torch.nn.Module]] = {
     "AASIST": _aasist, "AASIST2": _aasist2, "AASIST_Robust": _robust,
-    "RawNet2Spoof": _rawnet2, "RawNetGatSpoofST": _rawgat}
+    "RawNet2Spoof": _rawnet2, "RawNetGatSpoofST": _rawgat,
+    "SSL_AASIST": _ssl_aasist}
 
 
 def list_architectures() -> List[str]:

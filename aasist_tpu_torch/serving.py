@@ -48,14 +48,16 @@ from aasist_tpu_torch.utils.dispatch import Slot, SlotRing, pipelined, record
 from aasist_tpu_torch.utils.profiling import annotate
 
 # Serving batch per architecture: the JAX package's starting values (128;
-# RawNet2's 1-D trunk 256), not yet measured on the H100.  Keys are
-# model_config["architecture"] names; others get 128.
+# RawNet2's 1-D trunk 256; SSL_AASIST, the port's own, 128), not yet
+# measured on the H100.  Keys are model_config["architecture"] names;
+# others get 128.
 SERVING_BATCH_DEFAULTS = {
     "AASIST": 128,
     "AASIST2": 128,
     "AASIST_Robust": 128,
     "RawNet2Spoof": 256,
     "RawNetGatSpoofST": 128,
+    "SSL_AASIST": 128,
 }
 
 # Batches in flight while scoring a list (``utils/dispatch.py``), as in
@@ -76,7 +78,8 @@ def kernel_route(model: torch.nn.Module, *, bf16: bool, device_type: str,
     """Set ``model``'s kernel paths as a Scorer computing in bf16 (or f32)
     on a ``device_type`` device sets them, and return the route of its eval
     forward: "stack" (the frontend + block-0 kernel pair), "frontend" (the
-    sinc-frontend kernel, block 0 on stock ops) or "stock".
+    sinc-frontend kernel, block 0 on stock ops) or "stock" (also the
+    route of a model with neither path, such as SSL_AASIST).
 
     ``None`` decides from the model: in bf16 on CUDA the frontend kernel
     for a model that has it, and the pair for one that has the stack path

@@ -18,12 +18,14 @@ import pytest
 import torch
 
 from aasist_tpu.ops.long_audio import score_long_audio as jax_long_audio
+from aasist_tpu.registry import list_architectures as jax_architectures
 from aasist_tpu.utils.dispatch import pipelined as jax_pipelined
 
-from aasist_tpu_torch.config import PACKAGED_CONFIGS, resolve_config_path
+from aasist_tpu_torch.config import (PACKAGED_CONFIGS, load_config,
+                                     resolve_config_path)
 from aasist_tpu_torch.data.dataset import pad_into, pad_to_fixed
 from aasist_tpu_torch.ops.long_audio import make_windows, score_long_audio
-from aasist_tpu_torch.registry import build_model
+from aasist_tpu_torch.registry import build_model, list_architectures
 from aasist_tpu_torch.serving import Scorer
 from aasist_tpu_torch.utils.dispatch import pipelined, record
 
@@ -230,11 +232,22 @@ def test_score_batch_keeps_its_contract(model):
 
 
 def test_packaged_configs_are_the_checkouts():
+    """Every stock config of the checkout is packaged byte for byte; the
+    package's other configs are of architectures only the port has (the
+    checkout's ``configs/`` is the JAX package's data too)."""
     names = sorted(p.name for p in (ROOT / "configs").glob("*.conf"))
-    assert sorted(p.name for p in PACKAGED_CONFIGS.glob("*.conf")) == names
+    packaged = sorted(p.name for p in PACKAGED_CONFIGS.glob("*.conf"))
+    assert set(names) <= set(packaged)
     for name in names:
         assert (PACKAGED_CONFIGS / name).read_bytes() == \
             (ROOT / "configs" / name).read_bytes()
+    extras = sorted(set(packaged) - set(names))
+    assert extras == ["SSL_AASIST.conf"]
+    for name in extras:
+        arch = load_config(PACKAGED_CONFIGS / name).model_config[
+            "architecture"]
+        assert arch in list_architectures()
+        assert arch not in jax_architectures()
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert '"aasist_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh", ' \
         '"csrc/*.cpp", "configs/*.conf"]' in pyproject

@@ -1,12 +1,15 @@
 """The Scorer's default route on a card: the frontend + block-0 kernel pair
 against ``use_fused_stack=False`` (the frontend kernel, block 0 on stock
-cuDNN ops).
+cuDNN ops); SSL-AASIST's stock route, its attention on a fused SDPA
+backend, and that backend as reported against the traced kernels.
 
 Marked ``chip``: it skips without a CUDA card.  It imports no JAX, so it
 runs on the card without the suite's ``conftest.py``::
 
     python3 -m pytest --noconftest tests/test_torch_scorer_cuda.py -m chip
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from aasist_tpu_torch.ops.frontend_variants import (fused_frontend_dot_padded,
                                                     fused_frontend_dot_plain)
 from aasist_tpu_torch.registry import build_model
 from aasist_tpu_torch.serving import Scorer
+from aasist_tpu_torch.utils import profiling
 
 BATCH = 4
 
@@ -67,3 +71,70 @@ def test_default_scorer_runs_the_stack_and_matches_the_frontend_route(card):
     assert np.isfinite(got).all()
     rel = np.abs(got - want) / np.maximum(np.abs(want), 2.0)
     assert rel.max() <= 0.05, (got, want)
+
+
+@pytest.fixture(scope="module")
+def ssl_model():
+    """SSL-AASIST at its published widths, its own random init."""
+    torch.manual_seed(0)
+    return build_model(load_config("SSL_AASIST.conf").model_config)
+
+
+@pytest.mark.chip
+def test_ssl_aasist_scorer_attends_on_a_fused_backend(card, ssl_model):
+    """SSL-AASIST: the default bf16 Scorer takes the stock route, runs 24
+    attention calls a forward on a fused SDPA backend, never the math
+    path, and scores as the float32 Scorer with TF32 off does, within 5 %
+    of max(|score|, 2) (the gate above)."""
+    from aasist_tpu_torch.cli import full_f32
+    model = ssl_model
+    rng = np.random.default_rng(8)
+    waves = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+             for n in rng.integers(16000, 96001, 2 * BATCH - 1)]
+    bf16 = Scorer(model, batch_size=BATCH, device=card)
+    got = np.asarray(bf16.score_waveforms(waves))
+    ssl = bf16.model.ssl
+    assert ssl.attention_calls == 24
+    assert ssl.sdpa_backend in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                                "CUDNN_ATTENTION"), ssl.sdpa_backend
+    f32 = Scorer(model, batch_size=BATCH, device=card, bf16=False)
+    with full_f32():
+        want = np.asarray(f32.score_waveforms(waves))
+    assert f32.model.ssl.sdpa_backend != "MATH"
+    assert np.isfinite(got).all() and got.shape == want.shape
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 2.0)
+    assert rel.max() <= 0.05, (got, want)
+
+
+# the backend whose kernels a traced attention kernel's name shows, by the
+# first of these its name holds (cuDNN's names hold "flash" too)
+_BACKEND_BY_NAME = (("cudnn", "CUDNN_ATTENTION"),
+                    ("fmha", "EFFICIENT_ATTENTION"),
+                    ("efficient", "EFFICIENT_ATTENTION"),
+                    ("flash", "FLASH_ATTENTION"))
+
+
+@pytest.mark.chip
+def test_ssl_aasist_reported_backend_is_the_traced_kernels(card, ssl_model,
+                                                           tmp_path):
+    """``model.ssl.sdpa_backend`` comes from the private
+    ``torch._fused_sdp_choice``: a traced bf16 forward's attention kernels
+    (the names ``attention_roofline.score`` reads) are all of the backend
+    it names, a whole number of them for each of the 24 calls."""
+    scorer = Scorer(ssl_model, batch_size=BATCH, device=card)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.standard_normal((BATCH, scorer.window))
+                          * 0.1).astype(np.float32)).to(card)
+    with torch.inference_mode():
+        scorer.model(x)
+        with profiling.trace(tmp_path):
+            scorer.model(x)
+    reported = scorer.model.ssl.sdpa_backend
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"
+             and any(k in e["name"].lower()
+                     for k in ("flash", "fmha", "sdpa", "attention"))]
+    shown = {next((b for key, b in _BACKEND_BY_NAME if key in n.lower()),
+                  n) for n in names}
+    assert shown == {reported}, (reported, sorted(set(names)))
+    assert names and len(names) % 24 == 0, (len(names), sorted(set(names)))

@@ -47,6 +47,8 @@ from test_torch_zoo_models import NARROW
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDENS = ROOT / "tests" / "goldens"
+# architectures the port has and the JAX package does not
+PORT_ONLY = ["SSL_AASIST"]
 # the stock config each architecture's runs start from
 STOCK = {"AASIST2": "AASIST2", "AASIST_Robust": "AASIST-Robust",
          "RawNetGatSpoofST": "RawGATST_baseline",
@@ -67,8 +69,11 @@ def _seeded(arch):
 
 
 def test_registry_is_the_jax_packages():
-    assert list_architectures() == jax_architectures()
-    assert SERVING_BATCH_DEFAULTS == JAX_SERVING_BATCH_DEFAULTS
+    """The JAX package's architectures and serving batches, and the port's
+    own (``PORT_ONLY``) beside them."""
+    assert list_architectures() == sorted(jax_architectures() + PORT_ONLY)
+    assert SERVING_BATCH_DEFAULTS == {**JAX_SERVING_BATCH_DEFAULTS,
+                                      "SSL_AASIST": 128}
     for path in sorted(PACKAGED_CONFIGS.glob("*.conf")):
         cfg = load_config(path)
         model = build_model(cfg.model_config)
