@@ -6,9 +6,15 @@ Usage::
     scores = scorer.score_waveforms([wav1, wav2, ...])   # bonafide scores
     label = "bonafide" if scores[0] > threshold else "spoof"
 
-Every batch has the scorer's fixed size: ragged requests are padded by
-repeating their last row and the padding's scores are dropped.  The forward
-is eager PyTorch under ``torch.inference_mode()``.
+A batch of n rows runs at the smallest of the scorer's row buckets that
+holds it (``row_buckets``: the powers of two from ``MIN_BUCKET`` up to
+``batch_size``, and ``batch_size``), padded by repeating its last row; the
+padding's scores are dropped.  Each utterance's score is a function of its
+own row alone (BatchNorm on running statistics, graph pooling per
+utterance), so the bucket changes the work, not the answer.  A full batch
+runs at ``batch_size``; a scorer over a mesh of several devices runs every
+batch at ``batch_size``.  ``Scorer.counters`` counts the rows asked for and
+the rows run.  The forward is eager PyTorch under ``torch.inference_mode()``.
 
 Batches are dispatched two deep (``utils/dispatch.py:pipelined``), as the
 JAX Scorer does: on a card, a batch is copied into a pinned host buffer,
@@ -36,7 +42,7 @@ batch's dispatch with its drain in a trace viewer.
 from __future__ import annotations
 
 import copy
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +69,22 @@ SERVING_BATCH_DEFAULTS = {
 # Batches in flight while scoring a list (``utils/dispatch.py``), as in
 # ``ops/long_audio.py``: the reference's depth.
 DISPATCH_DEPTH = 2
+
+# The smallest row bucket of a one-device scorer (``row_buckets``): below
+# it the forward's fixed cost of kernel launches outweighs its rows.
+MIN_BUCKET = 16
+
+
+def row_buckets(batch_size: int) -> Tuple[int, ...]:
+    """The row counts a one-device scorer of ``batch_size`` runs a batch
+    at: the powers of two from ``MIN_BUCKET`` up to ``batch_size``, and
+    ``batch_size`` (128: 16, 32, 64, 128; 16 or less: ``batch_size``
+    alone)."""
+    buckets, rows = [], MIN_BUCKET
+    while rows < batch_size:
+        buckets.append(rows)
+        rows *= 2
+    return (*buckets, batch_size)
 
 
 def _pad_rows(batch: np.ndarray, size: int) -> np.ndarray:
@@ -139,6 +161,15 @@ class Scorer:
     changed: the scorer works on its own copy.  ``mesh`` spreads each batch
     over its devices (one replica each, ``batch_size`` a multiple of the
     mesh's size); ``device`` is then the mesh's first.
+
+    A batch of n rows runs at the smallest of ``buckets`` that holds n:
+    ``row_buckets(batch_size)`` on one device, ``batch_size`` alone over a
+    mesh of several.  ``counters`` holds running totals over every batch
+    dispatched: ``batches``, ``rows`` (the rows asked for), ``rows_run``
+    (the rows computed) and ``by_rows`` (batches by bucket); each batch
+    publishes a new dict, so one read is one consistent set of totals.
+    ``1 - rows / rows_run`` is the share of computed rows that were
+    padding.
     """
 
     def __init__(self, model: torch.nn.Module, *,
@@ -180,10 +211,13 @@ class Scorer:
         for d in devices:
             if d not in replicas:
                 replicas[d] = copy.deepcopy(model).to(d)
-        step = batch_size // len(devices)
-        # (rows, device, replica) of each part of a batch
-        self._parts = [(slice(i * step, (i + 1) * step), d, replicas[d])
-                       for i, d in enumerate(devices)]
+        # (device, replica) of each part of a batch, split by rows
+        self._replicas = [(d, replicas[d]) for d in devices]
+        # a mesh's parts split batch_size's rows, so it runs no other size
+        self.buckets = (row_buckets(batch_size) if len(devices) == 1
+                        else (batch_size,))
+        self.counters = {"batches": 0, "rows": 0, "rows_run": 0,
+                         "by_rows": dict.fromkeys(self.buckets, 0)}
         # a ring of pinned slots, one per batch in flight: DISPATCH_DEPTH
         # + 1 tickets exist at once while a list is scored, and a slot
         # comes round again only after its ticket has been drained
@@ -203,25 +237,39 @@ class Scorer:
         load_model_weights(model, weights_path or cfg.model_path)
         return cls(model, **kwargs)
 
+    def _count(self, n: int, rows: int) -> None:
+        """Add a batch of ``n`` rows run at ``rows`` to ``counters``."""
+        c = self.counters
+        self.counters = {"batches": c["batches"] + 1, "rows": c["rows"] + n,
+                         "rows_run": c["rows_run"] + rows,
+                         "by_rows": {**c["by_rows"],
+                                     rows: c["by_rows"][rows] + 1}}
+
     def _dispatch(self, waves: Sequence[np.ndarray]) -> _Ticket:
         """Queue the forward of n <= batch_size waveforms, each cropped or
         tile-repeated to the window (``pad_to_fixed``; rows of the window's
-        length pass as they are), the batch padded by repeating the last.
-        On a card they are written straight into a pinned buffer and sent
-        with a non-blocking copy, and the scores come back into a pinned
-        buffer behind an event: nothing here waits for the device.  On the
-        CPU the scores are computed at once."""
+        length pass as they are), the batch padded by repeating the last
+        up to the smallest bucket that holds n.  On a card they are written
+        straight into the first rows of a pinned buffer and sent with a
+        non-blocking copy, and the scores come back into a pinned buffer
+        behind an event: nothing here waits for the device.  On the CPU the
+        scores are computed at once."""
         n, seq = len(waves), self._seq
         self._seq += 1
+        rows = next(b for b in self.buckets if b >= n)
+        step = rows // len(self._replicas)
+        parts = [(slice(i * step, (i + 1) * step), device, model)
+                 for i, (device, model) in enumerate(self._replicas)]
         with annotate("serving.dispatch", seq):
             if self.device.type != "cuda":
-                rows = np.stack([pad_to_fixed(np.asarray(w, np.float32),
+                host = np.stack([pad_to_fixed(np.asarray(w, np.float32),
                                               self.window) for w in waves])
-                x = torch.from_numpy(_pad_rows(rows, self.batch_size))
+                x = torch.from_numpy(_pad_rows(host, rows))
                 with annotate("serving.forward"), torch.inference_mode():
                     scores = torch.cat([
                         model(x[part].to(device))[1][:, 1].float().cpu()
-                        for part, device, model in self._parts])
+                        for part, device, model in parts])
+                self._count(n, rows)
                 return _Ticket(n, scores.numpy()[:n], None, 0, seq)
             with annotate("serving.acquire"):
                 slot = self._ring.acquire()
@@ -229,10 +277,10 @@ class Scorer:
                 host = slot.rows.numpy()
                 for i, w in enumerate(waves):
                     pad_into(host[i], np.asarray(w, np.float32))
-                host[n:] = host[n - 1]
+                host[n:rows] = host[n - 1]
             events = []
             with torch.inference_mode():
-                for part, device, model in self._parts:
+                for part, device, model in parts:
                     with torch.cuda.device(device):
                         with annotate("serving.send"):
                             x = slot.rows[part].to(device, non_blocking=True)
@@ -242,6 +290,7 @@ class Scorer:
                                                     non_blocking=True)
                             events.append(record(device))
             slot.events = events
+            self._count(n, rows)
             return _Ticket(n, None, slot, slot.gen, seq)
 
     def _drain(self, ticket: _Ticket) -> np.ndarray:
@@ -261,7 +310,10 @@ class Scorer:
         return self._drain(self._dispatch(waves))
 
     def warmup(self) -> None:
-        self._fwd(np.zeros((self.batch_size, self.window), np.float32))
+        """One batch at each bucket, the largest first, so that no later
+        batch meets a shape the scorer has not run."""
+        for rows in reversed(self.buckets):
+            self._fwd(np.zeros((rows, self.window), np.float32))
 
     def score_batch(self, batch: np.ndarray) -> np.ndarray:
         """Score (n, window) waveforms, n <= batch_size."""

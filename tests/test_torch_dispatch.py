@@ -2,8 +2,9 @@
 
 ``aasist_tpu_torch.utils.dispatch.pipelined`` against the JAX package's
 ``aasist_tpu.utils.dispatch.pipelined`` (the same calls in the same order);
-the Scorer's pipelined scoring against a serial loop of forwards; and a
-config resolved from a copy of the package outside the checkout.
+the Scorer's pipelined scoring against a serial loop of forwards; the
+Scorer's row buckets and its counters; and a config resolved from a copy
+of the package outside the checkout.
 """
 
 import json
@@ -25,8 +26,9 @@ from aasist_tpu_torch.config import (PACKAGED_CONFIGS, load_config,
                                      resolve_config_path)
 from aasist_tpu_torch.data.dataset import pad_into, pad_to_fixed
 from aasist_tpu_torch.ops.long_audio import make_windows, score_long_audio
+from aasist_tpu_torch.parallel.mesh import DataMesh
 from aasist_tpu_torch.registry import build_model, list_architectures
-from aasist_tpu_torch.serving import Scorer
+from aasist_tpu_torch.serving import Scorer, row_buckets
 from aasist_tpu_torch.utils.dispatch import pipelined, record
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -229,6 +231,120 @@ def test_score_batch_keeps_its_contract(model):
         scorer.score_batch(np.zeros((BATCH + 1, WINDOW), np.float32))
     with pytest.raises(ValueError, match="expected window"):
         scorer.score_batch(np.zeros((2, WINDOW + 1), np.float32))
+
+
+class _RowsSeen(torch.nn.Module):
+    """A model stub: records each forward's row count and scores a row by
+    its mean."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def forward(self, x):
+        self.seen.append(x.shape[0])
+        m = x.mean(dim=1)
+        return x, torch.stack([-m, m], dim=1)
+
+
+STUB_WINDOW = 32
+
+
+def _stub_scorer(batch_size, **kw):
+    return Scorer(_RowsSeen(), device="cpu", bf16=False, window=STUB_WINDOW,
+                  batch_size=batch_size, **kw)
+
+
+def _row_means(waves):
+    """The stub's scores of ``waves``, one row at a time."""
+    return np.array([torch.from_numpy(w[None]).mean(dim=1).item()
+                     for w in waves], np.float32)
+
+
+def _stub_waves(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(STUB_WINDOW).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("batch_size,n,rows", [
+    (128, 1, 16), (128, 2, 16), (128, 15, 16), (128, 16, 16),
+    (128, 17, 32), (128, 33, 64), (128, 100, 128), (128, 128, 128),
+    (4, 1, 4), (4, 3, 4), (256, 200, 256)])
+def test_a_batch_runs_at_the_smallest_bucket_that_holds_it(batch_size, n,
+                                                           rows):
+    """n rows run at the smallest of 16, 32, ... batch_size that holds them
+    (batch_size alone at 16 or less), each real row scored as its own and
+    the padding's scores dropped."""
+    scorer = _stub_scorer(batch_size)
+    waves = _stub_waves(n, seed=n)
+    got = scorer.score_batch(np.stack(waves))
+    assert scorer.model.seen == [rows]
+    np.testing.assert_array_equal(got, _row_means(waves))
+
+
+def test_row_buckets():
+    assert row_buckets(128) == (16, 32, 64, 128)
+    assert row_buckets(256) == (16, 32, 64, 128, 256)
+    assert row_buckets(100) == (16, 32, 64, 100)
+    assert row_buckets(16) == (16,)
+    assert row_buckets(2) == (2,)
+
+
+@pytest.mark.parametrize("n", [1, 5, 16])
+def test_a_bucketed_request_scores_as_the_serial_loop(model, n):
+    """A request of n <= 16 rows to a scorer of 32 runs one 16-row forward,
+    and its scores equal the serial loop's of BATCH-row batches (to
+    SCORE_ATOL, each nearest its own)."""
+    rng = np.random.default_rng(20 + n)
+    waves = [(rng.standard_normal(m) * 0.05 * 1.5 ** (i % 8)
+              ).astype(np.float32)
+             for i, m in enumerate(rng.integers(4000, 30000, n))]
+    scorer = Scorer(model, device="cpu", bf16=False, window=WINDOW,
+                    batch_size=32)
+    got = scorer.score_waveforms(waves)
+    assert scorer.counters["by_rows"] == {16: 1, 32: 0}
+    rows = np.stack([pad_to_fixed(w, WINDOW) for w in waves])
+    _assert_scores_match(np.asarray(got, np.float32),
+                         _serial(scorer.model, rows).astype(np.float32))
+
+
+def test_a_mesh_scorer_keeps_full_batches():
+    """Over a mesh of two devices every batch runs at batch_size, half on
+    each, whatever its real rows."""
+    scorer = _stub_scorer(32, mesh=DataMesh(["cpu", "cpu"]))
+    assert scorer.buckets == (32,)
+    waves = _stub_waves(37)
+    got = scorer.score_waveforms(waves)
+    assert scorer.model.seen == [16, 16, 16, 16]
+    np.testing.assert_array_equal(got, _row_means(waves))
+    assert scorer.counters == {"batches": 2, "rows": 37, "rows_run": 64,
+                               "by_rows": {32: 2}}
+
+
+def test_warmup_runs_each_bucket_once():
+    scorer = _stub_scorer(128)
+    scorer.warmup()
+    assert scorer.model.seen == [128, 64, 32, 16]
+    assert scorer.counters["by_rows"] == {16: 1, 32: 1, 64: 1, 128: 1}
+
+
+def test_counters_count_a_mixed_call():
+    """Running totals over a call of two full batches and a ragged 17, a
+    3-row score_batch and an empty one; each batch publishes a new dict
+    and leaves the one read before it as it was."""
+    scorer = _stub_scorer(128)
+    before = scorer.counters
+    assert before == {"batches": 0, "rows": 0, "rows_run": 0,
+                      "by_rows": {16: 0, 32: 0, 64: 0, 128: 0}}
+    scorer.score_waveforms(_stub_waves(2 * 128 + 17))
+    scorer.score_batch(np.stack(_stub_waves(3)))
+    scorer.score_batch(np.zeros((0, STUB_WINDOW), np.float32))
+    assert scorer.model.seen == [128, 128, 32, 16]
+    assert scorer.counters == {"batches": 4, "rows": 276, "rows_run": 304,
+                               "by_rows": {16: 1, 32: 1, 64: 0, 128: 2}}
+    assert before == {"batches": 0, "rows": 0, "rows_run": 0,
+                      "by_rows": {16: 0, 32: 0, 64: 0, 128: 0}}
 
 
 def test_packaged_configs_are_the_checkouts():

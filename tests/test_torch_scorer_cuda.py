@@ -1,6 +1,7 @@
 """The Scorer's default route on a card: the frontend + block-0 kernel pair
 against ``use_fused_stack=False`` (the frontend kernel, block 0 on stock
-cuDNN ops); SSL-AASIST's stock route, its attention on a fused SDPA
+cuDNN ops); a small request at its 16-row bucket against the same rows in
+a full batch; SSL-AASIST's stock route, its attention on a fused SDPA
 backend, and that backend as reported against the traced kernels.
 
 Marked ``chip``: it skips without a CUDA card.  It imports no JAX, so it
@@ -71,6 +72,42 @@ def test_default_scorer_runs_the_stack_and_matches_the_frontend_route(card):
     assert np.isfinite(got).all()
     rel = np.abs(got - want) / np.maximum(np.abs(want), 2.0)
     assert rel.max() <= 0.05, (got, want)
+
+
+@pytest.mark.chip
+def test_a_small_request_runs_one_16_row_forward(card):
+    """The default bf16 Scorer (batch 128, the kernel pair) runs a request
+    of 1, 5 or 16 rows as one 16-row forward with one ``block0_pipe``
+    launch, and scores each row as the same row scored inside a full
+    128-row call, within 5 % of max(|score|, 2) (the gate above)."""
+    torch.manual_seed(0)
+    model = build_model(load_config("AASIST.conf").model_config)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
+                n = bn.running_mean.shape
+                bn.running_mean.copy_(torch.from_numpy(
+                    rng.normal(0, 0.1, n).astype(np.float32)))
+                bn.running_var.copy_(torch.from_numpy(
+                    rng.uniform(0.5, 1.5, n).astype(np.float32)))
+    waves = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+             for n in rng.integers(16000, 96001, 128)]
+    scorer = Scorer(model, device=card)
+    assert scorer.model.use_fused_stack and scorer.batch_size == 128
+    full = np.asarray(scorer.score_waveforms(waves))
+    assert scorer.counters["by_rows"][128] == 1
+    for n in (1, 5, 16):
+        counted, launched = scorer.counters, block0_pipe.launches
+        got = np.asarray(scorer.score_waveforms(waves[:n]))
+        now = scorer.counters
+        assert block0_pipe.launches - launched == 1
+        assert now["batches"] - counted["batches"] == 1
+        assert now["rows_run"] - counted["rows_run"] == 16
+        assert now["by_rows"][16] - counted["by_rows"][16] == 1
+        assert got.shape == (n,) and np.isfinite(got).all()
+        rel = np.abs(got - full[:n]) / np.maximum(np.abs(full[:n]), 2.0)
+        assert rel.max() <= 0.05, (n, got, full[:n])
 
 
 @pytest.fixture(scope="module")
